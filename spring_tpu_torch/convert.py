@@ -1,0 +1,61 @@
+"""Carry engine state between the JAX package and the port.
+
+This system has no weights; what crosses between spring_tpu and the port
+is device state: the reorder engine's state dict, the dictionary tables
+and the packed row table. On the JAX side they are numpy arrays (uint32
+for packed words, int32/bool otherwise); in the port, packed words are
+int32 tensors holding the same bit patterns. These helpers convert both
+ways without changing a bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .reorder import dictionary as dct
+
+# engine state fields (and the row table) that hold packed uint32 words
+STATE_U32 = ("counts", "claimed", "rows")
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """numpy array (or array-like) -> tensor on ``device``; uint32 arrays
+    become int32 tensors of the same bit patterns."""
+    a = np.array(a, order="C")          # a writable copy; keeps 0-d shape
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.as_tensor(a, device=device)
+
+
+def to_numpy(t: torch.Tensor, uint32: bool = False) -> np.ndarray:
+    """tensor -> numpy array; ``uint32`` views int32 patterns as uint32."""
+    a = t.detach().cpu().numpy()
+    return a.view(np.uint32) if uint32 else a
+
+
+def state_to_torch(state: dict, device="cpu") -> dict:
+    """JAX engine state dict (engine.py _init_state) -> port state."""
+    return {k: to_torch(v, device) for k, v in state.items()}
+
+
+def state_to_numpy(state: dict) -> dict:
+    """Port state -> numpy arrays in the JAX dtypes."""
+    return {k: to_numpy(v, uint32=k in STATE_U32) for k, v in state.items()}
+
+
+def dict_to_torch(btab, rids, keys, start: int, dropped: int = 0,
+                  device="cpu") -> dct.DeviceDict:
+    """A JAX DeviceDict's arrays (btab/keys uint32, rids int32) -> the
+    port's DeviceDict."""
+    return dct.DeviceDict(
+        btab=to_torch(btab, device), rids=to_torch(rids, device),
+        keys_dev=to_torch(keys, device), start=start,
+        dropped=torch.tensor(int(dropped), dtype=torch.int32,
+                             device=device))
+
+
+def dict_to_numpy(d: dct.DeviceDict) -> dict:
+    """The port's DeviceDict -> numpy arrays in the JAX dtypes."""
+    return dict(btab=to_numpy(d.btab, uint32=True), rids=to_numpy(d.rids),
+                keys=to_numpy(d.keys_dev, uint32=True), start=d.start,
+                dropped=int(d.dropped))

@@ -1,0 +1,84 @@
+"""End to end: spring_tpu_torch.api.compress (device "cpu") writes archives
+byte-equal to spring_tpu.api.compress on synthetic single-end sets, they
+round-trip byte-exact, and the port runs with JAX blocked."""
+import filecmp
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("jax")
+
+from spring_tpu import api as japi  # noqa: E402
+from spring_tpu.utils import synth  # noqa: E402
+from spring_tpu_torch import api as tapi  # noqa: E402
+from spring_tpu_torch.pipeline import short_mode as tshort  # noqa: E402
+from spring_tpu_torch.reorder import engine as teng  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _opts():
+    return japi.CompressOptions(num_threads=2, verbose=False)
+
+
+@pytest.mark.parametrize("n_reads", [4096, 16384])
+def test_se_archive_byte_equal_and_roundtrip(tmp_path, n_reads):
+    fq = str(tmp_path / "in.fastq")
+    # ~40x coverage, 1% substitutions, some N bases: N-reads and
+    # singleton contigs go through second chance
+    synth.make_se(fq, n_reads, read_len=100, genome_size=n_reads * 100 // 40,
+                  seed=n_reads, n_rate=0.0005)
+    a_jax, a_torch = str(tmp_path / "jax.stpu"), str(tmp_path / "torch.stpu")
+    japi.compress([fq], a_jax, _opts())
+    tapi.compress([fq], a_torch, _opts(), device="cpu")
+    assert teng.LAST_RUN_STATS["rounds"] > 0
+    assert "second_chance" in tshort.LAST_STAGE_SECONDS
+    with open(a_jax, "rb") as f1, open(a_torch, "rb") as f2:
+        assert f1.read() == f2.read()
+    out = str(tmp_path / "out.fastq")
+    tapi.decompress(a_torch, [out], verbose=False, num_threads=2)
+    assert filecmp.cmp(fq, out, shallow=False)
+
+
+def test_cli_compress_on_cpu(tmp_path):
+    from spring_tpu_torch import cli
+    fq = str(tmp_path / "in.fastq")
+    synth.make_se(fq, 1000, read_len=100, genome_size=4000, seed=3)
+    arc, out = str(tmp_path / "a.stpu"), str(tmp_path / "o.fastq")
+    assert cli.main(["-c", "-i", fq, "-o", arc, "--device", "cpu",
+                     "-t", "2", "--quiet"]) == 0
+    assert cli.main(["-d", "-i", arc, "-o", out, "-t", "2",
+                     "--quiet"]) == 0
+    assert filecmp.cmp(fq, out, shallow=False)
+    assert cli.main(["-c", "-i", str(tmp_path / "missing.fastq"), "-o", arc,
+                     "--device", "cpu", "--quiet"]) == 1
+
+
+def test_port_runs_without_jax(tmp_path):
+    """With jax blocked from import, spring_tpu_torch imports and
+    compresses a small file on the CPU."""
+    fq = str(tmp_path / "in.fastq")
+    synth.make_se(fq, 2000, read_len=100, genome_size=5000, seed=5)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "from spring_tpu_torch import api\n"
+        f"api.compress([{fq!r}], {fq + '.stpu'!r},\n"
+        "             api.CompressOptions(num_threads=2, verbose=False),\n"
+        "             device='cpu')\n"
+        "assert sys.modules['jax'] is None\n"
+        "assert not any(m.startswith('jax.') or m == 'jaxlib'\n"
+        "               for m in sys.modules)\n"
+        "print('ok')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("ok")
+    out = fq + ".out"
+    tapi.decompress(fq + ".stpu", [out], verbose=False, num_threads=2)
+    assert filecmp.cmp(fq, out, shallow=False)
