@@ -1,24 +1,37 @@
 """Top-level compress/decompress API of the port.
 
-Same contract as spring_tpu.api, plus an explicit torch ``device`` for
-short-mode compress. Long mode (-l) is host code and goes to
-spring_tpu.pipeline.long_mode; decompress has no device stage and is
-spring_tpu.api.decompress.
+Copy of spring_tpu/api.py, plus an explicit torch ``device`` for
+short-mode compress. Long mode (-l) and decompress are host code and
+have no device stage.
+
+Reference analog: spring::compress / spring::decompress
+(src/spring.h:23-36, src/spring.cpp:41-377) — validates options, sequences
+the pipeline stages with per-stage timing, and owns the archive lifecycle.
 """
 from __future__ import annotations
 
 import os
-import subprocess
 import time
+from dataclasses import dataclass
 
-import spring_tpu
-from spring_tpu import api as _tpu_api
-from spring_tpu import params as P
-from spring_tpu.api import CompressOptions, validate_options
-from spring_tpu.codecs import native
-from spring_tpu.io.container import ArchiveReader, ArchiveWriter
+from . import params as P
+from .io.container import ArchiveReader, ArchiveWriter
 
 __all__ = ["CompressOptions", "compress", "decompress"]
+
+
+@dataclass
+class CompressOptions:
+    reorder: bool = False            # -r: do not preserve read order
+    preserve_quality: bool = True
+    preserve_id: bool = True
+    long_mode: bool = False          # -l
+    fasta_input: bool = False
+    quality_mode: str = "lossless"   # lossless | qvz | ill_bin | binary
+    qvz_ratio: float = 8.0
+    bin_thresholds: tuple = ()
+    num_threads: int = 8
+    verbose: bool = True
 
 
 def _log(opts, msg: str) -> None:
@@ -26,22 +39,19 @@ def _log(opts, msg: str) -> None:
         print(msg, flush=True)
 
 
-def load_host_library() -> None:
-    """Build (at first use) and load spring_tpu's native host library.
-
-    spring_tpu builds it with ``make`` and the environment's CXX; where
-    that compiler cannot link OpenMP (no libgomp.spec), build it once
-    more with the g++ on PATH."""
-    try:
-        native.load()
-    except subprocess.CalledProcessError:
-        csrc = os.path.join(os.path.dirname(spring_tpu.__file__), "csrc")
-        res = subprocess.run(["make", "-s", "-C", csrc, "libspringtpu.so",
-                              "CXX=g++"], capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"building {csrc}/libspringtpu.so failed:\n"
-                               f"{res.stderr[-4000:]}") from None
-        native.load()
+def validate_options(files: list[str], opts: CompressOptions) -> None:
+    """Flag validation (reference src/spring.cpp:98-136)."""
+    if len(files) not in (1, 2):
+        raise ValueError("expected 1 (SE) or 2 (PE) input files")
+    if opts.quality_mode not in P.QUALITY_MODES:
+        raise ValueError(f"quality mode must be one of {P.QUALITY_MODES}")
+    if opts.quality_mode == "binary" and len(opts.bin_thresholds) != 3:
+        raise ValueError("binary quality mode needs (threshold, high, low)")
+    if opts.fasta_input and opts.quality_mode != "lossless":
+        raise ValueError("quality modes do not apply to FASTA input")
+    for f in files:
+        if not os.path.exists(f):
+            raise FileNotFoundError(f)
 
 
 def compress(files: list[str], output: str,
@@ -51,7 +61,6 @@ def compress(files: list[str], output: str,
     short-mode device stages run on ``device``."""
     opts = opts or CompressOptions()
     validate_options(files, opts)
-    load_host_library()
     cp = P.CompressionParams(
         paired_end=len(files) == 2,
         preserve_order=not opts.reorder,
@@ -64,9 +73,11 @@ def compress(files: list[str], output: str,
         bin_thresholds=tuple(opts.bin_thresholds),
     )
     t0 = time.time()
+    # short mode spools: codec workers write members as they complete
+    # (bounded memory), tar emitted in canonical order at finish()
     with ArchiveWriter(output, spooled=not opts.long_mode) as writer:
         if opts.long_mode:
-            from spring_tpu.pipeline import long_mode
+            from .pipeline import long_mode
             long_mode.compress_long(files, writer, cp, opts.num_threads)
         else:
             from .pipeline import short_mode
@@ -95,9 +106,32 @@ def decompress(archive: str, outputs: list[str], gzipped: bool = False,
                num_threads: int = 8,
                read_range: tuple[int, int] | None = None,
                verbose: bool = True) -> P.CompressionParams:
-    """spring_tpu.api.decompress (host code only: decompress has no device
-    stage), after making sure the native host library is built."""
-    load_host_library()
-    return _tpu_api.decompress(archive, outputs, gzipped=gzipped,
-                               num_threads=num_threads,
-                               read_range=read_range, verbose=verbose)
+    """Decompress ``archive`` into ``outputs`` (host code only);
+    ``read_range`` is a 0-based half-open range."""
+    t0 = time.time()
+    with ArchiveReader(archive) as reader:
+        cp = reader.params
+        if read_range is not None:
+            lo, hi = read_range
+            if not (0 <= lo < hi <= cp.num_reads):
+                raise ValueError(
+                    f"invalid read range [{lo}, {hi}) for {cp.num_reads} reads")
+        if cp.paired_end and len(outputs) not in (1, 2):
+            raise ValueError("PE archive needs 1 or 2 output files")
+        if not cp.paired_end and len(outputs) != 1:
+            raise ValueError("SE archive needs exactly 1 output file")
+        if cp.long_mode:
+            from .pipeline import long_mode
+            long_mode.decompress_long(reader, outputs, gzipped, num_threads,
+                                      read_range)
+        elif cp.shard_reads:
+            from .pipeline import short_mode
+            short_mode.decompress_short_sharded(reader, outputs, gzipped,
+                                                num_threads, read_range)
+        else:
+            from .pipeline import short_mode
+            short_mode.decompress_short(reader, outputs, gzipped, num_threads,
+                                        read_range)
+    if verbose:
+        print(f"decompressed in {time.time()-t0:.2f}s", flush=True)
+    return cp

@@ -2,26 +2,73 @@
 
     python -m spring_tpu_torch.cli -c -i in.fastq -o out.stpu --device cuda
     python -m spring_tpu_torch.cli -d -i out.stpu -o out.fastq
+
+Copy of spring_tpu/cli.py. Reference analog: src/main.cpp:49-96
+(boost::program_options flags): -c/-d, -i, -o, -t, -r, -l, -q, -g,
+--fasta-input, --no-quality, --no-ids, --decompress-range, -w (working
+dir, unused here: we stream in-process and have no temp-dir lifecycle to
+manage).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from spring_tpu.cli import build_parser as _tpu_parser
-from spring_tpu.cli import parse_quality_opts
-
 from . import api
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = _tpu_parser()
-    p.prog = "spring-tpu-torch"
-    p.description = "FASTQ/FASTA compressor (SPRING-class), PyTorch/CUDA port"
+    p = argparse.ArgumentParser(
+        prog="spring-tpu-torch",
+        description="FASTQ/FASTA compressor (SPRING-class), PyTorch/CUDA "
+                    "port")
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("-c", "--compress", action="store_true")
+    mode.add_argument("-d", "--decompress", action="store_true")
+    p.add_argument("-i", "--input-file", nargs="+", required=True,
+                   help="input file(s): 1 for SE, 2 for PE")
+    p.add_argument("-o", "--output-file", nargs="+", required=True,
+                   help="output file(s)")
+    p.add_argument("-t", "--num-threads", type=int, default=8)
+    p.add_argument("-w", "--working-dir", default=None,
+                   help="accepted for SPRING CLI compatibility; this "
+                        "implementation streams in-process and needs no "
+                        "temp directory")
+    p.add_argument("-r", "--allow-read-reordering", action="store_true",
+                   help="do not retain read order (better compression)")
+    p.add_argument("-l", "--long", action="store_true",
+                   help="long-read mode (no length limit; reads stored raw)")
+    p.add_argument("-q", "--quality-opts", nargs="+", default=["lossless"],
+                   help="lossless | qvz <ratio> | ill_bin | binary <t> <hi> <lo>")
+    p.add_argument("-g", "--gzipped-fastq", action="store_true",
+                   help="gzip decompressed output")
+    p.add_argument("--fasta-input", action="store_true")
+    p.add_argument("--no-quality", action="store_true")
+    p.add_argument("--no-ids", action="store_true")
+    p.add_argument("--decompress-range", nargs=2, type=int, metavar=("START", "END"),
+                   help="decompress reads START..END (1-based, inclusive)")
+    p.add_argument("--quiet", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device of the compress device stages "
                         "(default cuda)")
     return p
+
+
+def parse_quality_opts(tokens: list[str]):
+    mode = tokens[0]
+    if mode == "lossless":
+        return "lossless", 8.0, ()
+    if mode == "qvz":
+        if len(tokens) != 2:
+            raise SystemExit("-q qvz needs a ratio argument")
+        return "qvz", float(tokens[1]), ()
+    if mode == "ill_bin":
+        return "ill_bin", 8.0, ()
+    if mode == "binary":
+        if len(tokens) != 4:
+            raise SystemExit("-q binary needs: threshold high low")
+        return "binary", 8.0, tuple(int(t) for t in tokens[1:4])
+    raise SystemExit(f"unknown quality mode {mode}")
 
 
 def main(argv=None) -> int:

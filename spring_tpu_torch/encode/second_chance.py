@@ -13,9 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spring_tpu import params as P
-from spring_tpu.io import packing
-
+from .. import params as P
+from ..io import packing
 from ..ops import bits
 from ..reorder import dictionary as dct
 

@@ -23,10 +23,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from spring_tpu.codecs import native
-from spring_tpu.encode import consensus as cons
-from spring_tpu.io import packing
-
+from ..codecs import native
+from ..io import packing
+from . import consensus as cons
 from . import second_chance as sc
 
 HEAD_BASES = 96          # head window length (multiple of 16, <= 6 words)

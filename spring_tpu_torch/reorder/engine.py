@@ -23,8 +23,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from spring_tpu import params as P
-
+from .. import params as P
 from ..ops import bits, kernels
 from . import dictionary as dct
 

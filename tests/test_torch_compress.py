@@ -1,8 +1,9 @@
 """End to end: spring_tpu_torch.api.compress (device "cpu") writes archives
 byte-equal to spring_tpu.api.compress on synthetic single-end sets, they
-round-trip byte-exact, and the port runs with JAX blocked."""
+round-trip byte-exact, and the port runs with jax and spring_tpu blocked."""
 import filecmp
 import os
+import re
 import subprocess
 import sys
 
@@ -11,10 +12,10 @@ import pytest
 pytest.importorskip("jax")
 
 from spring_tpu import api as japi  # noqa: E402
-from spring_tpu.utils import synth  # noqa: E402
 from spring_tpu_torch import api as tapi  # noqa: E402
 from spring_tpu_torch.pipeline import short_mode as tshort  # noqa: E402
 from spring_tpu_torch.reorder import engine as teng  # noqa: E402
+from spring_tpu_torch.utils import synth  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,20 +58,26 @@ def test_cli_compress_on_cpu(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """With jax blocked from import, spring_tpu_torch imports and
-    compresses a small file on the CPU."""
+    """With jax AND spring_tpu blocked from import, spring_tpu_torch
+    imports, compresses a small file on the CPU and decompresses it with
+    its own code, byte-exact."""
     fq = str(tmp_path / "in.fastq")
     synth.make_se(fq, 2000, read_len=100, genome_size=5000, seed=5)
     code = (
-        "import sys\n"
+        "import filecmp, sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['spring_tpu'] = None\n"
         "from spring_tpu_torch import api\n"
         f"api.compress([{fq!r}], {fq + '.stpu'!r},\n"
         "             api.CompressOptions(num_threads=2, verbose=False),\n"
         "             device='cpu')\n"
+        f"api.decompress({fq + '.stpu'!r}, [{fq + '.out'!r}],\n"
+        "               num_threads=2, verbose=False)\n"
+        f"assert filecmp.cmp({fq!r}, {fq + '.out'!r}, shallow=False)\n"
         "assert sys.modules['jax'] is None\n"
-        "assert not any(m.startswith('jax.') or m == 'jaxlib'\n"
-        "               for m in sys.modules)\n"
+        "assert sys.modules['spring_tpu'] is None\n"
+        "assert not any(m.startswith(('jax.', 'spring_tpu.'))\n"
+        "               or m == 'jaxlib' for m in sys.modules)\n"
         "print('ok')\n")
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
@@ -79,6 +86,34 @@ def test_port_runs_without_jax(tmp_path):
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert res.stdout.strip().endswith("ok")
-    out = fq + ".out"
-    tapi.decompress(fq + ".stpu", [out], verbose=False, num_threads=2)
+    # and spring_tpu reads what the blocked process wrote
+    out = fq + ".jax.out"
+    japi.decompress(fq + ".stpu", [out], verbose=False, num_threads=2)
     assert filecmp.cmp(fq, out, shallow=False)
+
+
+def test_port_sources_import_nothing_of_jax_or_spring_tpu():
+    """No file of the port (the package, chip_smoke.py, the profile tool)
+    has an import of jax or of the spring_tpu package, a path built
+    into spring_tpu/, or a SPRING_TPU_* environment variable."""
+    imp = re.compile(r"^\s*(from|import)\s+(jax|spring_tpu)(\.|\s|$)")
+    paths = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tools", "profile_torch_engine.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO, "spring_tpu_torch")):
+        paths += [os.path.join(root, f) for f in names
+                  if f.endswith((".py", ".cpp", ".h", ".cu"))]
+    assert len(paths) > 30
+    bad = []
+    for p in paths:
+        with open(p, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                code = line.split("#", 1)[0]
+                if "sys.modules[" in code:      # the import block itself
+                    continue
+                if (imp.match(line) or "spring_tpu.__file__" in code
+                        or re.search(r"[\"']spring_tpu[\"']|spring_tpu/csrc",
+                                     code)
+                        or "SPRING_TPU_" in code):
+                    bad.append(f"{os.path.relpath(p, REPO)}:{i}: "
+                               f"{line.strip()}")
+    assert not bad, "\n".join(bad)

@@ -7,12 +7,14 @@ strands, ~50x coverage, seed 42), runs spring_tpu_torch's ReorderEngine
 once on cuda to warm up and once under torch.profiler, and prints: the
 dictionary build and run wall times, rounds and ms/round, the device busy
 share of the profiled run (sum of CUDA kernel time over wall time), and
-the ops with the most CUDA time and the masked-Hamming rows. The full
-table goes to DIR/engine_ops.txt.
+the ops with the most CUDA time and the masked-Hamming rows, under the
+card's name and power limit (nvidia-smi). The full table goes to
+DIR/engine_ops.txt.
 Needs a CUDA card.
 """
 import argparse
 import os
+import subprocess
 import sys
 import time
 
@@ -22,7 +24,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def make_reads(n: int, L: int = 100, genome: int = 2_000_000, seed: int = 42):
-    from spring_tpu.io import packing
+    from spring_tpu_torch.io import packing
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 4, genome).astype(np.uint8)
     starts = rng.integers(0, genome - L, n)
@@ -44,6 +46,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_engine: needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
+    print("[card]", subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0], flush=True)
 
     from spring_tpu_torch.ops import kernels
     from spring_tpu_torch.reorder import engine as eng
