@@ -8,11 +8,19 @@ Phases, each printing its numbers on a line of its own:
   2. build, side by side, the CUDA kernel library from
      spring_tpu_torch/csrc (nvcc) and the port's native host library from
      spring_tpu_torch/csrc/host (g++);
-  3. the masked-Hamming kernel against masked_hamming_ref on the card,
-     exact equality, at the reorder round's shape (B=4096 walkers x M=16
-     slots, W=7 words, rows of stride W+1) and at the word-major
-     (W=7, B=16384, K=128) shape, with edge ranges; median CUDA-event
-     times of both;
+  3. every entry of the kernel library (spring_tpu_torch/csrc/
+     masked_hamming.cu) against its plain PyTorch version on the card,
+     exact equality: the fused fetch-and-verify kernel verify_rows at the
+     reorder round's shape (B=4096 walkers x M=16 slots, W=7 words, SC=16
+     shifts, a 2^20-row table; claimed bits, candidates below 0 and past
+     the table, padding rows, empty ranges, negative offsets, both
+     orientations), and masked_hamming at the
+     row-major round shape and the word-major (W=7, B=16384, K=128) shape
+     with edge ranges. A kernel's time is the device's: CUDA events around
+     the replay of a CUDA graph of 200 launches, captured inside the
+     library (an empty kernel timed the same way is printed as the floor);
+     the wrapper's time over Python calls is printed beside it as its
+     enqueue time;
   4. a 16,384-read set compressed on the card and on the CPU: the two
      archives must be byte-equal (the CPU path is held to the JAX
      package's output by tests/test_torch_*.py); this also warms the card
@@ -20,8 +28,9 @@ Phases, each printing its numbers on a line of its own:
   5. the main path: 1,000,000 single-end 100 bp reads
      (synth.make_se(genome_size=2_000_000, seed=42), ~50x coverage)
      compressed with spring_tpu_torch.api.compress(device="cuda"),
-     decompressed and byte-compared with the input; the kernel's launch
-     count over that compress must be at least the number of rounds;
+     decompressed and byte-compared with the input; the fused kernel's
+     launch count over that compress must be at least the number of
+     rounds;
   6. paired-end with read reordering at full size: 500,000 pairs
      (synth.make_pe, same genome and seed), CompressOptions(reorder=True)
      on the card, decompressed by the port; the multiset of
@@ -34,7 +43,7 @@ Phases, each printing its numbers on a line of its own:
      round-tripped byte-exact, plus one read range of the PE archive
      against the same slice of the input.
 Then one JSON line of kernel results (launches summed over phases 5-7,
-the kernel's time beside its bound on this card) and, last, the device
+each entry's device time beside its bound on this card) and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
 then not 0 and no result line is printed. Needs a CUDA card; imports
 neither JAX nor the JAX package.
@@ -72,6 +81,9 @@ ALU_OPS_PER_S = 67e12
 # masks of a subtract, a clamp and a shift each, a not and an and; the
 # final and, popcount and add
 OPS_PER_WORD = 14
+# the fused verify, per slot beside its words: clamp the id, the row's
+# address, the bitmap test, the length mask, the shift, lo/hi/t, the accept
+OPS_PER_SLOT = 22
 
 
 def log(msg: str) -> None:
@@ -129,59 +141,181 @@ def kernel_inputs(torch, shape, W, seed):
     return a, b, lo, hi
 
 
-def kernel_bound(n_out: int, W: int) -> dict:
-    """The least time the card could take for n_out masked-Hamming
-    outputs over W words: each output reads W frame words, W row words,
-    lo and hi, and writes one word; against the published peaks."""
-    nbytes = n_out * (2 * W + 3) * 4
-    ops = n_out * W * OPS_PER_WORD
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take to move nbytes and do ops
+    integer operations, against the published peaks."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(torch, kernels):
-    """Phase 3: (results, max_abs_err) at both shapes."""
+def kernel_bound(n_out: int, W: int) -> dict:
+    """Bound of n_out masked-Hamming outputs over W words: each output
+    reads W frame words, W row words, lo and hi, and writes one word."""
+    return _bound(n_out * (2 * W + 3) * 4, n_out * W * OPS_PER_WORD)
+
+
+def verify_bound(torch, args) -> dict:
+    """Bound of one fused verify on these inputs. Every input is read once
+    and every output written once: per output its row (W + 1 words), the
+    candidate id, the frame index, one bitmap word, the valid byte in; ham,
+    t, clen and the ok byte out; per walker ref_len, shift_base and those of
+    its 2*SC frames that a slot of this run names (counted from k_frame;
+    the kernel itself stages all 2*SC, which the function does not
+    need)."""
+    rows_tab, cand, _, _, frames, k_frame, shift_base, ref_len = args
+    n = cand.numel()
+    B, W = cand.shape[0], rows_tab.shape[1] - 1
+    F = frames.numel() // (B * W)
+    walker = torch.arange(B, device=k_frame.device)[:, None]
+    named = int(torch.unique(walker * F + k_frame.clamp(0, F - 1)).numel())
+    nbytes = (n * ((W + 1) * 4 + 4 + 4 + 4 + 1 + 3 * 4 + 1)
+              + (named * W + shift_base.numel() + ref_len.numel()) * 4)
+    return _bound(nbytes, n * (W * OPS_PER_WORD + OPS_PER_SLOT))
+
+
+def verify_inputs(torch, B, M, W, SC, Np, n_real, seed):
+    """Inputs of the fused verify at the round's shape, made on the card:
+    a random row table (length word 100; padding rows past n_real carry
+    bit 31 and length 0), candidates spread over the table in pairs that
+    share a frame (as the round's C = 2 candidates a probe group do), a
+    third of the slots matching their frame up to a few flipped bases, a
+    quarter of the bitmap claimed, and the edge cases: cand < 0,
+    cand >= Np (the sentinel 2^31 - 1 included), padding rows, walkers
+    with ref_len 0 (hi <= lo), negative t, both orientations."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    i32 = torch.int32
+
+    def words(sz):
+        return torch.randint(-2**31, 2**31, sz, generator=g, device="cuda",
+                             dtype=torch.int64).to(i32)
+
+    def rnd(lo, hi, sz):
+        return torch.randint(lo, hi, sz, generator=g, device="cuda",
+                             dtype=i32)
+
+    def chance(p, sz):
+        return torch.rand(sz, generator=g, device="cuda") < p
+
+    F = 2 * SC
+    rows_tab = words((Np, W + 1))
+    rows_tab[:, W] = 100
+    rows_tab[n_real:, W] = -2**31
+    cand = rnd(0, n_real, (B, M))
+    k_frame = rnd(0, F, (B, M // 2)).repeat_interleave(2, dim=1).contiguous()
+    frames = words((B, F, W))
+    bi, mi = torch.nonzero(chance(0.34, (B, M)), as_tuple=True)
+    near = rows_tab[cand[bi, mi].long(), :W].clone()
+    nflip = rnd(0, 7, (len(bi),))
+    for j in range(6):
+        bit = (rnd(1, 4, (len(bi),)) << (2 * rnd(0, 16, (len(bi),))))
+        wi = rnd(0, W, (len(bi),)).long()
+        rowsel = torch.arange(len(bi), device="cuda")
+        near[rowsel, wi] ^= torch.where(nflip > j, bit, 0).to(i32)
+    frames[bi, k_frame[bi, mi].long()] = near
+    cand[chance(0.03, (B, M))] = -1
+    cand[chance(0.03, (B, M))] = 2**31 - 1
+    cand[chance(0.02, (B, M))] = Np
+    pad = chance(0.02, (B, M))
+    cand[pad] = rnd(n_real, Np, (B, M))[pad]
+    cand.view(-1)[:3] = torch.tensor([0, Np - 1, -2**31], dtype=i32)
+    valid = chance(0.8, (B, M))
+    nwords = Np // 32 + 2
+    claimed = words((nwords,)) & words((nwords,))
+    ref_len = rnd(60, 16 * W + 1, (B,))
+    ref_len[chance(0.02, (B,))] = 0
+    shift_base = SC * rnd(0, 3, (B,))
+    return (rows_tab, cand, valid, claimed, frames, k_frame, shift_base,
+            ref_len)
+
+
+def check_kernel(torch, kernels, thresh):
+    """Phase 3: every entry of the kernel library against its plain
+    version, exact equality, with its times; thresh is the round's accept
+    limit. Returns (entries by name, max_abs_err)."""
     out = {}
     err = 0
     W = 7
-    # the round's layout: (B, M, W) frames, (B, M, W+1) gathered rows
-    B, M = 4096, 16
+
+    def same(what, got, want):
+        nonlocal err
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            err = max(err, int((g.to(torch.int32) - w.to(torch.int32))
+                               .abs().max()))
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{what} differs from its plain "
+                                     "version")
+
+    # ---- the fused verify at the round's shape: 4096 walkers x 16 slots
+    # over the 2^20-row table of a 1M-read run
+    B, M, SC, Np = 4096, 16, 16, 1 << 20
+    vargs = verify_inputs(torch, B, M, W, SC, Np, N_READS, SEED + 2)
+    want = kernels.verify_rows_ref(*vargs, thresh)
+    same("verify_rows", kernels.verify_rows(*vargs, thresh), want)
+    ok, t, clen, _ = want
+    rows_tab, cand, _, _, _, k_frame, shift_base, ref_len = vargs
+    o = k_frame & 1
+    s = shift_base[:, None] + (k_frame >> 1)
+    lo = torch.where(o == 0, 0, s)
+    hi = torch.minimum(ref_len[:, None] + torch.where(o == 0, -s, s), clen)
+    pad_row = rows_tab[cand.clamp(0, Np - 1).long(), W] < 0
+    for what, hit in (("accepts forward", ok & (o == 0)),
+                      ("accepts reverse", ok & (o == 1)),
+                      ("t < 0", t < 0), ("cand < 0", cand < 0),
+                      ("cand >= Np", cand >= Np), ("hi <= lo", hi <= lo),
+                      ("a padding row", pad_row),
+                      ("a claimed row", ~ok & (
+                          kernels.verify_rows_ref(
+                              *vargs[:3], torch.zeros_like(vargs[3]),
+                              *vargs[4:], thresh)[0]))):
+        if not bool(hit.any()):
+            raise AssertionError(f"verify inputs hold no case of {what}")
+    ms, got = kernels.verify_rows_device_ms(*vargs, thresh)
+    same("verify_rows (timed launches)", got, want)
+    out["verify_rows"] = dict(
+        shape=f"B={B} M={M} W={W} SC={SC} Np={Np}",
+        **verify_bound(torch, vargs), ms=ms,
+        enqueue_ms=cuda_ms(torch, lambda: kernels.verify_rows(*vargs,
+                                                              thresh)),
+        plain_ms=cuda_ms(torch, lambda: kernels.verify_rows_ref(*vargs,
+                                                                thresh)),
+        accepted=int(ok.sum()))
+    del vargs, want, got
+    # ---- masked Hamming, row-major: (B, M, W) frames, (B, M, W+1) rows
     fr, rw, lo, hi = kernel_inputs(torch, (B, M), W, SEED)
     lw = torch.full((B, M, 1), 100, dtype=torch.int32, device="cuda")
     rows = torch.cat([rw, lw], dim=-1).contiguous()
-    got = kernels.masked_hamming_rows(fr, rows, lo, hi)
-    want = kernels.masked_hamming_ref(fr.movedim(-1, 0),
-                                      rows[..., :W].movedim(-1, 0), lo, hi)
-    torch.cuda.synchronize()
-    err = max(err, int((got - want).abs().max()))
-    if not torch.equal(got, want):
-        raise AssertionError("masked_hamming_rows differs from the plain "
-                             "version at the round shape")
-    out["round"] = dict(
+
+    def plain_rows():
+        return kernels.masked_hamming_ref(
+            fr.movedim(-1, 0), rows[..., :W].movedim(-1, 0), lo, hi)
+
+    same("masked_hamming_rows",
+         [kernels.masked_hamming_rows(fr, rows, lo, hi)], [plain_rows()])
+    out["masked_hamming_rows"] = dict(
         shape=f"B={B} M={M} W={W} rows stride {W + 1}",
         **kernel_bound(B * M, W),
-        ms=cuda_ms(torch, lambda: kernels.masked_hamming_rows(
+        ms=kernels.masked_hamming_device_ms(fr, rows, lo, hi,
+                                            row_major=True),
+        enqueue_ms=cuda_ms(torch, lambda: kernels.masked_hamming_rows(
             fr, rows, lo, hi)),
-        plain_ms=cuda_ms(torch, lambda: kernels.masked_hamming_ref(
-            fr.movedim(-1, 0), rows[..., :W].movedim(-1, 0), lo, hi)))
-    # word-major (W, B, K), the JAX kernel's layout and microbench shape
+        plain_ms=cuda_ms(torch, plain_rows))
+    # ---- word-major (W, B, K), the JAX kernel's layout and microbench
+    # shape
     B2, K = 16384, 128
     a, b, lo2, hi2 = kernel_inputs(torch, (B2, K), W, SEED + 1)
     a = a.movedim(-1, 0).contiguous()
     b = b.movedim(-1, 0).contiguous()
-    got = kernels.masked_hamming(a, b, lo2, hi2)
-    want = kernels.masked_hamming_ref(a, b, lo2, hi2)
-    torch.cuda.synchronize()
-    err = max(err, int((got - want).abs().max()))
-    if not torch.equal(got, want):
-        raise AssertionError("masked_hamming differs from the plain version "
-                             "at the word-major shape")
-    out["word_major"] = dict(
+    same("masked_hamming", [kernels.masked_hamming(a, b, lo2, hi2)],
+         [kernels.masked_hamming_ref(a, b, lo2, hi2)])
+    out["masked_hamming"] = dict(
         shape=f"W={W} B={B2} K={K}",
         **kernel_bound(B2 * K, W),
-        ms=cuda_ms(torch, lambda: kernels.masked_hamming(a, b, lo2, hi2)),
+        ms=kernels.masked_hamming_device_ms(a, b, lo2, hi2),
+        enqueue_ms=cuda_ms(torch, lambda: kernels.masked_hamming(
+            a, b, lo2, hi2)),
         plain_ms=cuda_ms(torch, lambda: kernels.masked_hamming_ref(
             a, b, lo2, hi2)))
     return out, err
@@ -208,18 +342,16 @@ def to_fasta(fq: str, out: str) -> None:
             o.write(b">" + head[1:] + b"\n" + seq + b"\n")
 
 
-def main() -> int:
+def kernel_phases():
+    """Phases 1-3: the card, the builds, every kernel entry against its
+    plain version. Returns (card line, device name, kernel entries)."""
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False); it runs only on a GPU")
-    from spring_tpu_torch import api, params
+    from spring_tpu_torch import params
     from spring_tpu_torch.codecs import native
-    from spring_tpu_torch.io.container import ArchiveReader
     from spring_tpu_torch.ops import _build, kernels
-    from spring_tpu_torch.pipeline import short_mode
-    from spring_tpu_torch.reorder import engine
-    from spring_tpu_torch.utils import synth
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -236,27 +368,49 @@ def main() -> int:
     with ThreadPoolExecutor(max_workers=2) as ex:
         f_kernel = ex.submit(timed, _build.load)
         f_host = ex.submit(timed, native.load)
-        log(f"[build] masked_hamming library built+loaded in "
+        log(f"[build] kernel library (masked_hamming.cu) built+loaded in "
             f"{f_kernel.result():.3f} s")
         log(f"[build] native host library built+loaded in "
             f"{f_host.result():.3f} s")
     log(f"[build] both, side by side, in {time.time() - t:.3f} s")
 
-    kres, max_err = check_kernel(torch, kernels)
+    kres, max_err = check_kernel(torch, kernels, params.THRESH_REORDER)
     for name, r in kres.items():
-        log(f"[kernel] masked_hamming {name} ({r['shape']}): equal to "
-            f"masked_hamming_ref; kernel {r['ms']:.5f} ms, plain "
-            f"{r['plain_ms']:.5f} ms (median CUDA events); bound "
+        log(f"[kernel] {name} ({r['shape']}): equal to its plain version; "
+            f"device {r['ms']:.5f} ms a launch (CUDA events around the "
+            f"replay of a graph of 200 launches), wrapper enqueue "
+            f"{r['enqueue_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms "
+            f"(median CUDA events over Python calls); bound "
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} "
             f"bytes at {HBM_BYTES_PER_S:.3g} B/s, {r['ops']} operations "
             f"at {ALU_OPS_PER_S:.3g}/s) on {card}")
+    log(f"[kernel] an empty kernel timed the same way: "
+        f"{kernels.launch_floor_device_ms():.5f} ms a launch on {card}")
+    log(f"[kernel] verify_rows accepted "
+        f"{kres['verify_rows']['accepted']} of 65536 slots")
+    for r in kres.values():
+        r["max_abs_err"] = max_err
+    return card, kind, kres
 
-    launches_total = 0
+
+def main() -> int:
+    card, kind, kres = kernel_phases()
+    import torch
+    from spring_tpu_torch import api, params
+    from spring_tpu_torch.io.container import ArchiveReader
+    from spring_tpu_torch.ops import kernels
+    from spring_tpu_torch.pipeline import short_mode
+    from spring_tpu_torch.reorder import engine
+    from spring_tpu_torch.utils import synth
+
+    launches_total = 0        # the fused verify, over phases 5-7
+    ham_launches_total = 0    # the masked-Hamming entries: off the path
 
     def on_card(files, arc, opts):
         """api.compress on the card with the launch count set to 0 just
         before and read just after: (seconds, launches, engine stats)."""
-        nonlocal launches_total
+        nonlocal launches_total, ham_launches_total
+        kernels.verify_rows.launches = 0
         kernels.masked_hamming.launches = 0
         engine.LAST_RUN_STATS.clear()
         torch.cuda.synchronize()
@@ -264,8 +418,9 @@ def main() -> int:
         api.compress(files, arc, opts, device="cuda")
         torch.cuda.synchronize()
         secs = time.time() - t
-        n = kernels.masked_hamming.launches
+        n = kernels.verify_rows.launches
         launches_total += n
+        ham_launches_total += kernels.masked_hamming.launches
         return secs, n, dict(engine.LAST_RUN_STATS)
 
     def need_launches(what, n, rounds):
@@ -312,7 +467,7 @@ def main() -> int:
             f"{peak} bytes")
         log(f"[main] stages_s {json.dumps(stages)}")
         log(f"[main] engine {json.dumps(stats)}")
-        log(f"[main] masked_hamming launches {launches} over "
+        log(f"[main] verify_rows launches {launches} over "
             f"{stats['rounds']} rounds")
         need_launches("the main path", launches, stats["rounds"])
         for f in (fq, arc, out):
@@ -431,15 +586,24 @@ def main() -> int:
                                  "the input")
         log(f"[mode] pe range [{lo}, {hi}): equal to the slice of the input")
 
-    r = kres["round"]
-    log(json.dumps({"kernels": [{
-        "name": "masked_hamming", "route": "cuda",
-        "source": "spring_tpu_torch/csrc/masked_hamming.cu",
-        "replaces": "spring_tpu/ops/pallas_kernels.py:59",
-        "launches": launches_total, "max_abs_err": max_err,
-        "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None}]}))
+    def entry(name, launches):
+        r = kres[name]
+        return {
+            "name": name, "route": "cuda",
+            "source": "spring_tpu_torch/csrc/masked_hamming.cu",
+            "replaces": "spring_tpu/ops/pallas_kernels.py:59",
+            "launches": launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "enqueue_ms": r["enqueue_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None}
+
+    # the fused entry carries the main path; the library's other entries
+    # (the Pallas kernel's own signature) are checked and timed in phase 3
+    # and launched by no phase after it
+    log(json.dumps({"kernels": [
+        entry("verify_rows", launches_total),
+        entry("masked_hamming_rows", ham_launches_total),
+        entry("masked_hamming", ham_launches_total)]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -18,7 +18,7 @@ from .reorder import dictionary as dct
 STATE_U32 = ("counts", "claimed", "rows")
 
 
-def to_torch(a, device="cpu") -> torch.Tensor:
+def to_torch(a, device="cuda") -> torch.Tensor:
     """numpy array (or array-like) -> tensor on ``device``; uint32 arrays
     become int32 tensors of the same bit patterns."""
     a = np.array(a, order="C")          # a writable copy; keeps 0-d shape
@@ -33,7 +33,7 @@ def to_numpy(t: torch.Tensor, uint32: bool = False) -> np.ndarray:
     return a.view(np.uint32) if uint32 else a
 
 
-def state_to_torch(state: dict, device="cpu") -> dict:
+def state_to_torch(state: dict, device="cuda") -> dict:
     """JAX engine state dict (engine.py _init_state) -> port state."""
     return {k: to_torch(v, device) for k, v in state.items()}
 
@@ -44,7 +44,7 @@ def state_to_numpy(state: dict) -> dict:
 
 
 def dict_to_torch(btab, rids, keys, start: int, dropped: int = 0,
-                  device="cpu") -> dct.DeviceDict:
+                  device="cuda") -> dct.DeviceDict:
     """A JAX DeviceDict's arrays (btab/keys uint32, rids int32) -> the
     port's DeviceDict."""
     return dct.DeviceDict(

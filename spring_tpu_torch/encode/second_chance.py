@@ -98,7 +98,7 @@ def align_leftovers_packed(seq_codes: np.ndarray, pk: np.ndarray,
                            lengths: np.ndarray,
                            thresh: int = P.THRESH_ENCODER,
                            exclude: np.ndarray | None = None,
-                           device="cpu"
+                           device="cuda"
                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Try to place each read on the consensus.
 

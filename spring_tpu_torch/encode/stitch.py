@@ -84,7 +84,7 @@ class _AffineUF:
 
 def stitch_layout(layout: cons.ContigLayout, seq_codes: np.ndarray,
                   lengths: np.ndarray,
-                  thresh: int = STITCH_THRESH, device="cpu"
+                  thresh: int = STITCH_THRESH, device="cuda"
                   ) -> tuple[cons.ContigLayout, int]:
     """Merge re-alignable contigs. Returns (new_layout, n_stitched);
     n_stitched == 0 returns the input layout unchanged. Head matching runs

@@ -57,10 +57,18 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.stpu_masked_hamming.argtypes = [
-                vp, vp, vp, vp, vp, i64, ctypes.c_int, i64, i64, i64, i64,
-                vp]
-            lib.stpu_masked_hamming.restype = ctypes.c_int
+            vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            ham = [vp, vp, vp, vp, vp, i64, ci, i64, i64, i64, i64, ci, vp]
+            ver = [vp] * 9 + [ci] * 7 + [vp]
+            timed = [ci, ctypes.POINTER(ctypes.c_float)]
+            for name, args in (
+                    ("stpu_masked_hamming", ham),
+                    ("stpu_masked_hamming_timed", ham + timed),
+                    ("stpu_verify_rows", ver),
+                    ("stpu_verify_rows_timed", ver + timed),
+                    ("stpu_empty_timed", [ci, vp] + timed)):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ci
             _lib = lib
         return _lib

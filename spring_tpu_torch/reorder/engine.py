@@ -3,7 +3,7 @@
 Port of spring_tpu/reorder/engine.py. B contig walkers advance in
 lock-step rounds: each round a walker probes SC shifts x 2 dictionaries x
 {forward, reverse-complement} of its consensus, verifies the candidate
-reads with the masked-Hamming kernel (ops/kernels.py), accepts every
+reads with the fused fetch-and-verify kernel (ops/kernels.py), accepts every
 verified read (first walker wins a contested read), updates its packed
 u8x4 consensus counts, and emits (rid, delta|flag|rc) slots. Reference
 analog: the greedy consensus-following walk of src/reorder.h:432-616.
@@ -268,30 +268,16 @@ def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
                  & gok[:, :, None])
         cand_m = candg.reshape(B, M)
         valid_m = (vcand & (candg >= 0)).reshape(B, M)
-        k_o_m = o_sel[:, :, None].expand(B, GSEL, C).reshape(B, M)
         k_frame_m = (srel * 2 + o_sel)[:, :, None].expand(
-            B, GSEL, C).reshape(B, M)
-        s_m = shift_base[:, None] + srel[:, :, None].expand(
             B, GSEL, C).reshape(B, M)
         pr_m = (g_id.to(torch.int32)[:, :, None] * C
                 + k["co"][None, None, :]).reshape(B, M)
 
-        # ---- verify: one (B, M) row gather + the masked-Hamming kernel --
-        safe = cand_m.clamp(0, Np - 1)
-        rows = packed[safe]                           # (B, M, W+1)
-        claimed_row = claimed_bit(claimed, safe)
-        clen = rows[..., Wl] & 0x7FFFFFFF
-        rl = ref_len[:, None]
-        fwd = k_o_m == 0
-        lo = torch.where(fwd, 0, s_m)
-        hi = torch.where(fwd, torch.minimum(rl - s_m, clen),
-                         torch.minimum(rl + s_m, clen))
-        t = torch.where(fwd, s_m, rl + s_m - clen)
-        frow = torch.gather(frames.reshape(B, 2 * SC, -1), 1,
-                            k_frame_m.to(torch.int64)[:, :, None].expand(
-                                B, M, Wl))
-        ham = kernels.masked_hamming_rows(frow, rows, lo, hi)
-        ok = valid_m & ~claimed_row & (ham <= thresh) & (t >= 0) & (hi > lo)
+        # ---- verify: candidate-row fetch, claimed test, range and masked
+        # Hamming of every slot in one fused kernel launch ----
+        ok, t, clen, _ = kernels.verify_rows(
+            packed, cand_m, valid_m, claimed, frames, k_frame_m,
+            shift_base, ref_len, thresh)
 
         # ---- batch accept: dedup rids within the walker (sort by
         # (rid, priority)), then order the accepts by (t, rid) ----
@@ -308,10 +294,12 @@ def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
         keep_f = torch.gather(keep_s, 1, p2)
         rid_f = torch.gather(rid_s, 1, p2)
         t_f = torch.gather(t_s, 1, p2)
-        ko_f = torch.gather(k_o_m, 1, slot_f)
+        ko_f = torch.gather(k_frame_m, 1, slot_f) & 1
         clen_f = torch.gather(clen, 1, slot_f)
-        rows_f = torch.gather(rows, 1, slot_f[:, :, None].expand(
-            B, M, Wl + 1))
+        # the accepted rows, fetched by id: a slot that did not win gets
+        # another row than its candidate's, and is masked by len_all == 0
+        safe_f = rid_f.clamp(0, Np - 1)
+        rows_f = packed[safe_f]                       # (B, M, W+1)
 
         # ---- cross-walker conflicts: first walker per rid wins ----
         win = resolve_conflicts(keep_f.reshape(-1),
@@ -339,8 +327,7 @@ def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
         new_len = torch.maximum(len0, len_all.amax(dim=1))
         counts = torch.where(matched_any[:, None], rolled, counts)
         ref_len = torch.where(matched_any, new_len, ref_len)
-        claimed = claim(claimed, win.reshape(-1),
-                        rid_f.clamp(0, Np - 1).reshape(-1))
+        claimed = claim(claimed, win.reshape(-1), safe_f.reshape(-1))
         shift_base = torch.where(matched_any, 0, shift_base)
 
         # walkers that found nothing advance their shift window; an
@@ -456,7 +443,7 @@ class ReorderEngine:
 
     def __init__(self, packed: np.ndarray, lengths: np.ndarray,
                  cfg: ReorderConfig, select: np.ndarray | None = None,
-                 device="cpu"):
+                 device="cuda"):
         """With ``select``, packed covers the full read set and the engine
         operates on packed[select] (gathered on the device)."""
         self.cfg = cfg

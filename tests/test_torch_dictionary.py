@@ -14,6 +14,12 @@ from spring_tpu_torch import convert  # noqa: E402
 from spring_tpu_torch.reorder import dictionary as tdct  # noqa: E402
 
 
+def _tt(a):
+    """numpy -> the port's tensor, on the CPU (convert's default is the
+    card)."""
+    return convert.to_torch(a, "cpu")
+
+
 def _np(a):
     return np.asarray(a)
 
@@ -57,7 +63,7 @@ def test_build_hash_dict_dev(wide, window):
     j_out = jdct._build_hash_dict_dev(jnp.asarray(rows),
                                       jnp.asarray(n, jnp.int32), start, S,
                                       wide)
-    t_out = tdct._build_hash_dict_dev(convert.to_torch(rows), n, start, S,
+    t_out = tdct._build_hash_dict_dev(_tt(rows), n, start, S,
                                       wide)
     _assert_build_equal(t_out, j_out)
 
@@ -70,7 +76,7 @@ def test_build_drops_overflowing_keys():
     j_out = jdct._build_hash_dict_dev(jnp.asarray(rows),
                                       jnp.asarray(n, jnp.int32),
                                       windows[0].start, S)
-    t_out = tdct._build_hash_dict_dev(convert.to_torch(rows), n,
+    t_out = tdct._build_hash_dict_dev(_tt(rows), n,
                                       windows[0].start, S)
     assert int(j_out[3]) > 0
     _assert_build_equal(t_out, j_out)
@@ -79,7 +85,7 @@ def test_build_drops_overflowing_keys():
 def test_build_hash_dicts_device_and_pairs():
     rows, n, windows = _rows(seed=9)
     jd = jdct.build_hash_dicts_device(jnp.asarray(rows), n, windows)
-    td = tdct.build_hash_dicts_device(convert.to_torch(rows), n, windows)
+    td = tdct.build_hash_dicts_device(_tt(rows), n, windows)
     for a, b in zip(td, jd):
         got = convert.dict_to_numpy(a)
         np.testing.assert_array_equal(got["btab"], _np(b.btab))
@@ -111,15 +117,15 @@ def test_probe_meta_groups(wide):
     dict_of_g = rng.integers(0, 2, G).astype(np.int32)
     js, jc = jdct.probe_meta_groups(jnp.asarray(btab_all), S, jnp.asarray(q),
                                     dict_of_g)
-    ts, tc = tdct.probe_meta_groups(convert.to_torch(btab_all), S,
-                                    convert.to_torch(q), dict_of_g)
+    ts, tc = tdct.probe_meta_groups(_tt(btab_all), S,
+                                    _tt(q), dict_of_g)
     assert int((_np(jc) > 0).sum()) > B * G // 8
     np.testing.assert_array_equal(ts.numpy(), _np(js))
     np.testing.assert_array_equal(tc.numpy(), _np(jc))
     # single-table probe_meta on the same queries
     js1, jc1 = jdct.probe_meta(jt[0][0], jnp.asarray(q))
-    ts1, tc1 = tdct.probe_meta(convert.to_torch(_np(jt[0][0])),
-                               convert.to_torch(q))
+    ts1, tc1 = tdct.probe_meta(_tt(_np(jt[0][0])),
+                               _tt(q))
     np.testing.assert_array_equal(ts1.numpy(), _np(js1))
     np.testing.assert_array_equal(tc1.numpy(), _np(jc1))
 
@@ -145,7 +151,7 @@ def test_seq_dict_and_probe_hash(mode):
     S = max(jdct.table_buckets(npos) // 2, 64)
     j_out = jdct.build_hash_dict_seq_dev(jnp.asarray(seq_w),
                                          jnp.asarray(total, jnp.int32), 1, S)
-    t_out = tdct.build_hash_dict_seq_dev(convert.to_torch(seq_w), total, 1,
+    t_out = tdct.build_hash_dict_seq_dev(_tt(seq_w), total, 1,
                                          S)
     _assert_build_equal(t_out, j_out)
     # queries: 16-mers of the sequence (some repeated) and random keys
@@ -162,7 +168,7 @@ def test_seq_dict_and_probe_hash(mode):
     elif mode == "wide_cands":
         mc = 12
     jc, jv = jdct.probe_hash(jb, jr, jnp.asarray(q), mc)
-    tc, tv = tdct.probe_hash(tb, tr, convert.to_torch(q), mc)
+    tc, tv = tdct.probe_hash(tb, tr, _tt(q), mc)
     assert int(_np(jv).sum()) >= 300
     np.testing.assert_array_equal(tv.numpy(), _np(jv))
     np.testing.assert_array_equal(tc.numpy(), _np(jc))
@@ -177,7 +183,7 @@ def test_seq_dict_segmented_build():
         j_out = jdct.build_hash_dict_seq_seg(
             jnp.asarray(seq_w), jnp.asarray(total, jnp.int32),
             jnp.asarray(base, jnp.int32), 1, nw_seg, S)
-        t_out = tdct.build_hash_dict_seq_seg(convert.to_torch(seq_w), total,
+        t_out = tdct.build_hash_dict_seq_seg(_tt(seq_w), total,
                                              base, 1, nw_seg, S)
         _assert_build_equal(t_out, j_out)
 
@@ -188,12 +194,12 @@ def test_device_dicts_carry_over():
     rows, n, windows = _rows(seed=14)
     jd = jdct.build_hash_dicts_device(jnp.asarray(rows), n, windows)[0]
     td = convert.dict_to_torch(_np(jd.btab), _np(jd.rids), _np(jd.keys_dev),
-                               jd.start, int(jd.dropped))
+                               jd.start, int(jd.dropped), device="cpu")
     back = convert.dict_to_numpy(td)
     np.testing.assert_array_equal(back["btab"], _np(jd.btab))
     np.testing.assert_array_equal(back["keys"], _np(jd.keys_dev))
     np.testing.assert_array_equal(back["rids"], _np(jd.rids))
     assert back["btab"].dtype == np.uint32 and back["rids"].dtype == np.int32
-    assert torch.equal(convert.to_torch(rows),
-                       convert.to_torch(convert.to_numpy(
-                           convert.to_torch(rows), uint32=True)))
+    assert torch.equal(_tt(rows),
+                       _tt(convert.to_numpy(
+                           _tt(rows), uint32=True)))

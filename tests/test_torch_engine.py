@@ -39,9 +39,10 @@ def entry():
     t_round, t_flush, cap = teng._flush_program(
         Np, cfg.candidates, cfg.shift_chunk, cfg.accept_slots, starts,
         cfg.thresh)
-    t_args = [convert.to_torch(np.asarray(a)) for a in
+    t_args = [convert.to_torch(np.asarray(a), "cpu") for a in
               (lengths, dkeys, pairs_all, seed_order)] + [
-        int(n_real), int(maxshift), convert.to_torch(np.asarray(rows))]
+        int(n_real), int(maxshift),
+        convert.to_torch(np.asarray(rows), "cpu")]
     return fn, args, t_round, t_flush, cap, t_args
 
 
@@ -53,7 +54,7 @@ def test_round_fn_from_entry_state(entry):
     state = dict(args[0])
     accepted = 0
     for _ in range(6):
-        t_state = convert.state_to_torch(_np_state(state))
+        t_state = convert.state_to_torch(_np_state(state), "cpu")
         j_new, j_emit = jround(state, *args[1:])
         t_new, t_emit = t_round(t_state, *t_args)
         _assert_state_equal(t_new, j_new)
@@ -75,7 +76,7 @@ def test_flush_fn_from_entry_state(entry):
     j_state, j_dense, j_cnt, j_stats = jflush(
         {k: jnp.asarray(v) for k, v in state0.items()}, *args[1:])
     t_state, t_dense, t_cnt, t_stats = t_flush(
-        convert.state_to_torch(state0), *t_args)
+        convert.state_to_torch(state0, "cpu"), *t_args)
     _assert_state_equal(t_state, j_state)
     np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(j_cnt))
     np.testing.assert_array_equal(t_stats.numpy(), np.asarray(j_stats))
@@ -107,11 +108,13 @@ def test_engine_run_emissions_equal(n):
     packed, lengths = _reads(n, seed=n)
     cfg = jeng.ReorderConfig(max_readlen=100)
     j_em = jeng.ReorderEngine(packed, lengths, cfg).run()
-    before = kernels.masked_hamming.launches
+    before = (kernels.masked_hamming.launches, kernels.verify_rows.launches)
     t_engine = teng.ReorderEngine(packed, lengths,
-                                  teng.ReorderConfig(max_readlen=100))
+                                  teng.ReorderConfig(max_readlen=100),
+                                  device="cpu")
     t_em = t_engine.run()
-    assert kernels.masked_hamming.launches == before   # CPU: plain path
+    assert (kernels.masked_hamming.launches,            # CPU: plain path
+            kernels.verify_rows.launches) == before
     assert len(j_em) > n // 2
     np.testing.assert_array_equal(t_em, j_em)
     assert teng.LAST_RUN_STATS["rounds"] == jeng.LAST_RUN_STATS["rounds"]
@@ -128,5 +131,5 @@ def test_engine_run_with_select():
     j_em = jeng.ReorderEngine(buf, lengths, cfg, select=sel).run()
     t_em = teng.ReorderEngine(buf, lengths,
                               teng.ReorderConfig(max_readlen=100),
-                              select=sel).run()
+                              select=sel, device="cpu").run()
     np.testing.assert_array_equal(t_em, j_em)

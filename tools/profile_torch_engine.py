@@ -6,10 +6,17 @@ Builds SRR554369-class packed reads in memory (1% substitutions, both
 strands, ~50x coverage, seed 42), runs spring_tpu_torch's ReorderEngine
 once on cuda to warm up and once under torch.profiler, and prints: the
 dictionary build and run wall times, rounds and ms/round, the device busy
-share of the profiled run (sum of CUDA kernel time over wall time), and
-the ops with the most CUDA time and the masked-Hamming rows, under the
+share of the profiled run (sum of CUDA kernel time over wall time), the
+round's hand-written kernel (calls, device us a call), the count of device
+kernel launches a round, and the ops with the most CUDA time, under the
 card's name and power limit (nvidia-smi). The full table goes to
 DIR/engine_ops.txt.
+
+The round's kernel, the fused verify_rows, is found by name in the trace,
+one call a round. Launches a round are all of the run's device kernels
+(dictionary build and flush compaction included) over the rounds run (the
+speculative last flush included). Both are printed beside what the round
+took before the verify was fused (BEFORE_FUSION, from PERF.md).
 Needs a CUDA card.
 """
 import argparse
@@ -21,6 +28,12 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# The round before its verify stage became one kernel (masked_hamming fed
+# by eager gathers), by this script at 1M reads on an NVIDIA H100 80GB
+# HBM3, 700.00 W (PERF.md section 6).
+BEFORE_FUSION = {"kernel_us_a_call": 2.77, "launches_a_round": 1028.7}
 
 
 def make_reads(n: int, L: int = 100, genome: int = 2_000_000, seed: int = 42):
@@ -65,7 +78,8 @@ def main() -> int:
     torch.cuda.synchronize()
     build_s = time.time() - t
     e._dicts = None
-    kernels.masked_hamming.launches = 0
+    wrapper = kernels.verify_rows
+    wrapper.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.time()
@@ -75,22 +89,37 @@ def main() -> int:
     stats = eng.LAST_RUN_STATS
     ka = prof.key_averages()
     # kernel rows only: an aten op's row repeats its kernels' time
-    dev_us = sum(k.self_device_time_total for k in ka
-                 if str(k.device_type).endswith("CUDA"))
+    dev_rows = [k for k in ka if str(k.device_type).endswith("CUDA")]
+    dev_us = sum(k.self_device_time_total for k in dev_rows)
+    ours = [k for k in dev_rows if "verify_rows" in k.key]
+    calls = sum(k.count for k in ours)
+    ours_us = sum(k.self_device_time_total for k in ours)
+    if calls != wrapper.launches or calls == 0:
+        raise SystemExit(f"profile_torch_engine: the trace holds {calls} "
+                         f"calls of the round's kernel, the wrapper "
+                         f"counted {wrapper.launches}")
+    n_dev = sum(k.count for k in dev_rows)
     print(f"[engine] {args.reads} reads: dict build {build_s:.3f} s; "
           f"run {wall:.3f} s, {stats['rounds']} rounds, "
           f"{stats['ms_per_round']} ms/round; kernel launches "
-          f"{kernels.masked_hamming.launches}")
+          f"{wrapper.launches}")
     print(f"[engine] device busy {dev_us / 1e6:.3f} s of {wall:.3f} s wall "
           f"({100 * dev_us / 1e6 / wall:.1f}%); the rest is host launch "
           f"overhead and syncs")
+    print(f"[engine] round kernel {', '.join(k.key for k in ours)}: {calls} "
+          f"calls, {ours_us:.3f} us device in all, {ours_us / calls:.3f} us "
+          f"a call (before the fusion: masked_hamming alone, "
+          f"{BEFORE_FUSION['kernel_us_a_call']} us a call)")
+    print(f"[engine] device kernel launches: {n_dev} in the run, "
+          f"{n_dev / calls:.1f} a round over {calls} rounds run (before "
+          f"the fusion: {BEFORE_FUSION['launches_a_round']} a round)")
     table = ka.table(sort_by="self_device_time_total", row_limit=-1)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "engine_ops.txt"), "w") as f:
         f.write(table)
     lines = table.splitlines()
     print("\n".join(lines[:25]))
-    print("\n".join(ln for ln in lines if "masked_hamming" in ln))
+    print("\n".join(ln for ln in lines if "verify_rows" in ln))
     return 0
 
 
