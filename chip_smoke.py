@@ -15,7 +15,8 @@ Phases, each printing its numbers on a line of its own:
      shifts, a 2^20-row table; claimed bits, candidates below 0 and past
      the table, padding rows, empty ranges, negative offsets, both
      orientations), and masked_hamming at the
-     row-major round shape and the word-major (W=7, B=16384, K=128) shape
+     row-major round shape (4096 walkers, and the 2048 and 1024 that a
+     rank of 2 or 4 holds) and the word-major (W=7, B=16384, K=128) shape
      with edge ranges. A kernel's time is the device's: CUDA events around
      the replay of a CUDA graph of 200 launches, captured inside the
      library (an empty kernel timed the same way is printed as the floor);
@@ -41,8 +42,23 @@ Phases, each printing its numbers on a line of its own:
      (cap lowered to 8,192 reads) and long mode, each compressed on the
      card and on the CPU to byte-equal archives, the lossless ones
      round-tripped byte-exact, plus one read range of the PE archive
-     against the same slice of the input.
-Then one JSON line of kernel results (launches summed over phases 5-7,
+     against the same slice of the input;
+  8. the distributed reorder engine (spring_tpu_torch/parallel) at world
+     size 1 over NCCL, the group formed through the port's
+     multihost.initialize: both collectives against the identity at the
+     round's sizes, then phase 5's 1,000,000 reads through
+     api.compress(CompressOptions(dist=True), device="cuda"): round trip
+     byte-exact, the archive within 5% + 10,240 bytes of phase 5's (the
+     distributed round differs from the single-device round by design),
+     seven collectives a round, and one launch of the masked-Hamming
+     kernel (masked_hamming_rows) for every round run;
+  9. only where more than one card is visible: the same compress on the
+     largest power of two of ranks up to 4, one process and one card
+     each, through multihost.launch: the emissions equal on every rank,
+     round trip byte-exact, the same numbers as phase 8. With one card it
+     prints one line saying so. It never puts two ranks on one card and
+     never moves to the CPU.
+Then one JSON line of kernel results (launches summed over phases 5-9,
 each entry's device time beside its bound on this card) and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
 then not 0 and no result line is printed. Needs a CUDA card; imports
@@ -294,6 +310,14 @@ def check_kernel(torch, kernels, thresh):
 
     same("masked_hamming_rows",
          [kernels.masked_hamming_rows(fr, rows, lo, hi)], [plain_rows()])
+    # a rank of 2 or 4 (phase 9) holds 2048 or 1024 of the walkers
+    for Bl in (B // 2, B // 4):
+        same(f"masked_hamming_rows at B={Bl}",
+             [kernels.masked_hamming_rows(fr[:Bl], rows[:Bl], lo[:Bl],
+                                          hi[:Bl])],
+             [kernels.masked_hamming_ref(
+                 fr[:Bl].movedim(-1, 0), rows[:Bl, :, :W].movedim(-1, 0),
+                 lo[:Bl], hi[:Bl])])
     out["masked_hamming_rows"] = dict(
         shape=f"B={B} M={M} W={W} rows stride {W + 1}",
         **kernel_bound(B * M, W),
@@ -340,6 +364,44 @@ def to_fasta(fq: str, out: str) -> None:
         for rec in read_records(fq):
             head, seq = rec.split(b"\n")[:2]
             o.write(b">" + head[1:] + b"\n" + seq + b"\n")
+
+
+KERNEL_NAMES = ("verify_rows", "masked_hamming_rows", "masked_hamming")
+
+
+def zero_counts(kernels) -> None:
+    """Set every wrapper's launch count to 0."""
+    for name in KERNEL_NAMES:
+        getattr(kernels, name).launches = 0
+
+
+def read_counts(kernels, path: str) -> dict:
+    """Every wrapper's launch count by name; a launch of another wrapper
+    than the driven path's raises."""
+    counts = {name: getattr(kernels, name).launches for name in KERNEL_NAMES}
+    if any(n for name, n in counts.items() if name != path):
+        raise AssertionError(f"launches off the {path} path: {counts}")
+    return counts
+
+
+def dist_rank(world, fq, arc, threads):
+    """Phase 9, one rank: the distributed compress on this rank's card,
+    with the launch counts set to 0 just before and read just after.
+    Returns (seconds, launch counts by wrapper, peak device memory, engine
+    stats)."""
+    import torch
+    from spring_tpu_torch import api
+    from spring_tpu_torch.ops import kernels
+    from spring_tpu_torch.reorder import engine
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t = time.time()
+    api.compress([fq], arc, api.CompressOptions(
+        num_threads=threads, verbose=False, dist=True), device="cuda")
+    torch.cuda.synchronize()
+    return (time.time() - t, read_counts(kernels, "masked_hamming_rows"),
+            torch.cuda.max_memory_allocated(), dict(engine.LAST_RUN_STATS))
 
 
 def kernel_phases():
@@ -399,29 +461,33 @@ def main() -> int:
     from spring_tpu_torch import api, params
     from spring_tpu_torch.io.container import ArchiveReader
     from spring_tpu_torch.ops import kernels
+    from spring_tpu_torch.parallel import multihost
     from spring_tpu_torch.pipeline import short_mode
     from spring_tpu_torch.reorder import engine
     from spring_tpu_torch.utils import synth
 
-    launches_total = 0        # the fused verify, over phases 5-7
-    ham_launches_total = 0    # the masked-Hamming entries: off the path
+    # launches on the main paths, phases 5-9: the fused verify (the
+    # single-device round), masked_hamming_rows (the distributed round),
+    # and the word-major masked_hamming (on no path)
+    total = dict.fromkeys(KERNEL_NAMES, 0)
 
     def on_card(files, arc, opts):
-        """api.compress on the card with the launch count set to 0 just
-        before and read just after: (seconds, launches, engine stats)."""
-        nonlocal launches_total, ham_launches_total
-        kernels.verify_rows.launches = 0
-        kernels.masked_hamming.launches = 0
+        """api.compress on the card with the launch counts set to 0 just
+        before and read just after: (seconds, launches of the path's
+        kernel, engine stats). The path's kernel is masked_hamming_rows
+        with opts.dist, else verify_rows."""
+        zero_counts(kernels)
         engine.LAST_RUN_STATS.clear()
         torch.cuda.synchronize()
         t = time.time()
         api.compress(files, arc, opts, device="cuda")
         torch.cuda.synchronize()
         secs = time.time() - t
-        n = kernels.verify_rows.launches
-        launches_total += n
-        ham_launches_total += kernels.masked_hamming.launches
-        return secs, n, dict(engine.LAST_RUN_STATS)
+        path = "masked_hamming_rows" if opts.dist else "verify_rows"
+        counts = read_counts(kernels, path)
+        for name, n in counts.items():
+            total[name] += n
+        return secs, counts[path], dict(engine.LAST_RUN_STATS)
 
     def need_launches(what, n, rounds):
         if n <= 0 or n < rounds:
@@ -429,7 +495,9 @@ def main() -> int:
                                  f"in {rounds} rounds")
 
     opts = api.CompressOptions(num_threads=THREADS, verbose=False)
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # ---- phase 4: a small set, card against CPU path
         fq2 = os.path.join(tmp, "small.fastq")
         synth.make_se(fq2, N_SMALL, read_len=100, genome_size=40_000, seed=7,
                       n_rate=0.0005)
@@ -470,7 +538,9 @@ def main() -> int:
         log(f"[main] verify_rows launches {launches} over "
             f"{stats['rounds']} rounds")
         need_launches("the main path", launches, stats["rounds"])
-        for f in (fq, arc, out):
+        single = dict(archive=os.path.getsize(arc),
+                      engine_s=stats["flush_wall_s"])
+        for f in (arc, out):        # phase 8 compresses fq again
             os.remove(f)
 
         # ---- phase 6: 500k pairs with read reordering
@@ -586,6 +656,96 @@ def main() -> int:
                                  "the input")
         log(f"[mode] pe range [{lo}, {hi}): equal to the slice of the input")
 
+        # ---- phases 8 and 9: the distributed engine over NCCL
+        def dist_report(tag, n, secs, launches, peak, stats):
+            """Check one distributed 1M-read compress (the archive is at
+            ``arc``) and print its numbers."""
+            api.decompress(arc, [out], num_threads=THREADS, verbose=False)
+            same_bytes(fq, out, f"{tag} round trip")
+            size = os.path.getsize(arc)
+            if abs(size - single["archive"]) > (0.05 * single["archive"]
+                                                + 10240):
+                raise AssertionError(
+                    f"{tag}: archive {size} bytes against the single "
+                    f"engine's {single['archive']}")
+            if (launches != stats["rounds_run"]
+                    or stats["collectives_per_round"] != 7
+                    or stats["world_size"] != n):
+                raise AssertionError(
+                    f"{tag}: {launches} launches of masked_hamming_rows, "
+                    f"engine {stats}")
+            log(f"[{tag}] world size {n} over NCCL: compress {secs:.3f} s = "
+                f"{N_READS / secs:.1f} reads/s; round trip byte-exact; "
+                f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
+                f"{stats['ms_per_round']} ms a round; unmatched fraction "
+                f"{stats.get('unmatched_frac')}; archive {size} bytes "
+                f"(single engine {single['archive']}); peak device memory "
+                f"{peak} bytes; collectives a round "
+                f"{stats['collectives_per_round']} (host time inside all "
+                f"{stats['collectives']} calls "
+                f"{stats['collective_host_s']} s); masked_hamming_rows "
+                f"launches {launches}; engine {stats['flush_wall_s']} s = "
+                f"{stats['flush_wall_s'] / single['engine_s']:.3f} of the "
+                f"single engine's {single['engine_s']} s; on {card}")
+            os.remove(arc)
+            os.remove(out)
+
+        world = multihost.initialize(0, 1, os.path.join(tmp, "store"),
+                                     device="cuda", timeout=600.0)
+        try:
+            g = torch.Generator(device=world.device).manual_seed(SEED + 8)
+            for shape in ((4096 * 64,), (4096 * 18, 8)):
+                x = torch.randint(-2**31, 2**31, shape, generator=g,
+                                  device=world.device,
+                                  dtype=torch.int64).to(torch.int32)
+                for fn in (multihost.all_to_all, multihost.all_gather):
+                    got = fn(world, x)
+                    torch.cuda.synchronize()
+                    if got is x or not torch.equal(got, x):
+                        raise AssertionError(
+                            f"{fn.__name__} at world size 1 is not an "
+                            "identity made by the group")
+            if world.collectives != 4:
+                raise AssertionError("the collectives did not reach NCCL")
+            log(f"[dist] all_to_all and all_gather over NCCL at world size "
+                f"1: equal to their input at {4096 * 64} words and "
+                f"{4096 * 18} rows of 8 words")
+            torch.cuda.reset_peak_memory_stats()
+            comp_s, launches, stats = on_card(
+                [fq], arc, api.CompressOptions(
+                    num_threads=THREADS, verbose=False, dist=True))
+            dist_report("dist", 1, comp_s, launches,
+                        torch.cuda.max_memory_allocated(), stats)
+        finally:
+            multihost.shutdown()
+
+        cards = torch.cuda.device_count()
+        if cards < 2:
+            log("[dist-n] skipped: one card is visible, and the ranks of a "
+                "world take one card each")
+        else:
+            n = 4 if cards >= 4 else 2
+            res = multihost.launch(dist_rank, n, (fq, arc, THREADS),
+                                   device="cuda", timeout=900.0)
+            digests = {r[3]["emissions_sha256"] for r in res}
+            if len(digests) != 1:
+                raise AssertionError(f"emissions differ between the {n} "
+                                     "ranks")
+            log(f"[dist-n] emissions equal on all {n} ranks (each a fresh "
+                "process: its compress seconds include CUDA and NCCL "
+                "start-up)")
+            for r in res:
+                if r[1]["masked_hamming_rows"] != r[3]["rounds_run"]:
+                    raise AssertionError(
+                        f"a rank launched masked_hamming_rows "
+                        f"{r[1]['masked_hamming_rows']} times in "
+                        f"{r[3]['rounds_run']} rounds")
+                for name, k in r[1].items():
+                    total[name] += k
+            secs, counts, peak, stats = res[0]
+            dist_report("dist-n", n, secs, counts["masked_hamming_rows"],
+                        peak, stats)
+
     def entry(name, launches):
         r = kres[name]
         return {
@@ -597,13 +757,15 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None}
 
-    # the fused entry carries the main path; the library's other entries
-    # (the Pallas kernel's own signature) are checked and timed in phase 3
-    # and launched by no phase after it
-    log(json.dumps({"kernels": [
-        entry("verify_rows", launches_total),
-        entry("masked_hamming_rows", ham_launches_total),
-        entry("masked_hamming", ham_launches_total)]}))
+    # the fused entry carries the single-device round (phases 5-7) and
+    # masked_hamming_rows the distributed round (phases 8-9); the
+    # word-major entry (the Pallas kernel's own signature) is checked and
+    # timed in phase 3 and launched by no phase after it
+    if not (total["verify_rows"] and total["masked_hamming_rows"]):
+        raise AssertionError(f"a kernel of the main paths never ran: "
+                             f"{total}")
+    log(json.dumps({"kernels": [entry(name, n)
+                                for name, n in total.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

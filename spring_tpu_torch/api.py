@@ -1,8 +1,9 @@
 """Top-level compress/decompress API of the port.
 
 Copy of spring_tpu/api.py, plus an explicit torch ``device`` for
-short-mode compress. Long mode (-l) and decompress are host code and
-have no device stage.
+short-mode compress and ``CompressOptions.dist`` for the distributed
+reorder engine (parallel/dist.py). Long mode (-l) and decompress are host
+code and have no device stage.
 
 Reference analog: spring::compress / spring::decompress
 (src/spring.h:23-36, src/spring.cpp:41-377) — validates options, sequences
@@ -32,6 +33,26 @@ class CompressOptions:
     bin_thresholds: tuple = ()
     num_threads: int = 8
     verbose: bool = True
+    # short mode: reorder on the distributed engine, over the ranks that
+    # parallel.multihost.maybe_initialize finds (one rank without a
+    # launcher); every rank makes the same call, rank 0 writes the archive
+    dist: bool = False
+
+
+class _DiscardWriter:
+    """The archive writer of a rank other than 0: it keeps nothing."""
+
+    def add(self, name: str, data: bytes) -> None:
+        pass
+
+    def finish(self, params) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
 
 
 def _log(opts, msg: str) -> None:
@@ -73,6 +94,18 @@ def compress(files: list[str], output: str,
         bin_thresholds=tuple(opts.bin_thresholds),
     )
     t0 = time.time()
+    world = None
+    # an options object of spring_tpu's shape, without the field, is taken
+    if getattr(opts, "dist", False) and not opts.long_mode:
+        from .parallel import multihost
+        world = multihost.maybe_initialize(device)
+        device = world.device
+    if world is not None and world.rank != 0:
+        with _DiscardWriter() as writer:
+            from .pipeline import short_mode
+            short_mode.compress_short(files, writer, cp, opts.num_threads,
+                                      device=device, world=world)
+        return cp
     # short mode spools: codec workers write members as they complete
     # (bounded memory), tar emitted in canonical order at finish()
     with ArchiveWriter(output, spooled=not opts.long_mode) as writer:
@@ -82,7 +115,7 @@ def compress(files: list[str], output: str,
         else:
             from .pipeline import short_mode
             short_mode.compress_short(files, writer, cp, opts.num_threads,
-                                      device=device)
+                                      device=device, world=world)
         writer.finish(cp)
     _log(opts, f"compressed {cp.num_reads} reads -> "
                f"{os.path.getsize(output)} bytes in {time.time()-t0:.2f}s")

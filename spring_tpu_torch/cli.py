@@ -1,7 +1,10 @@
-"""Command-line interface of the port: spring_tpu's flags plus --device.
+"""Command-line interface of the port: spring_tpu's flags plus --device
+and --dist.
 
     python -m spring_tpu_torch.cli -c -i in.fastq -o out.stpu --device cuda
     python -m spring_tpu_torch.cli -d -i out.stpu -o out.fastq
+    torchrun --nproc-per-node 4 -m spring_tpu_torch.cli -c --dist \
+        -i in.fastq -o out.stpu       # one rank a card, rank 0 writes
 
 Copy of spring_tpu/cli.py. Reference analog: src/main.cpp:49-96
 (boost::program_options flags): -c/-d, -i, -o, -t, -r, -l, -q, -g,
@@ -51,6 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of the compress device stages "
                         "(default cuda)")
+    p.add_argument("--dist", action="store_true",
+                   help="reorder on the distributed engine: over the "
+                        "ranks of torchrun (one a card), or one rank "
+                        "without it")
     return p
 
 
@@ -84,7 +91,7 @@ def main(argv=None) -> int:
                 fasta_input=args.fasta_input,
                 quality_mode=qmode, qvz_ratio=qratio, bin_thresholds=qthr,
                 num_threads=args.num_threads,
-                verbose=not args.quiet)
+                verbose=not args.quiet, dist=args.dist)
             if len(args.output_file) != 1:
                 raise SystemExit("compression writes exactly 1 archive")
             api.compress(args.input_file, args.output_file[0], opts,
@@ -104,6 +111,10 @@ def main(argv=None) -> int:
     except (ValueError, FileNotFoundError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if args.compress and args.dist:
+            from .parallel import multihost
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

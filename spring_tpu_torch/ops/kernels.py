@@ -15,10 +15,10 @@ signature and its word-major (W, B, K) layout; ``masked_hamming_rows``
 takes row-major (B, M, W) frames and (B, M, W+1) rows (the length word is
 not read). All three run csrc/masked_hamming.cu on CUDA tensors and their
 plain version (``verify_rows_ref``, ``masked_hamming_ref``) on CPU tensors;
-any other device raises, and nothing falls back on the card. Every kernel
-launch adds one to the wrapper's ``launches``. The ``*_device_ms``
-functions time launches on the card with no host call between them (a
-replayed CUDA graph of ``reps`` launches).
+any other device raises, and nothing falls back on the card. Each wrapper
+adds one to its own ``launches`` where it launches its kernel. The
+``*_device_ms`` functions time launches on the card with no host call
+between them (a replayed CUDA graph of ``reps`` launches).
 """
 from __future__ import annotations
 
@@ -114,7 +114,6 @@ def _launch(frames, rows, lo, hi, W: int, strides: tuple) -> torch.Tensor:
     out = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
     _raise_cuda("masked_hamming", lib.stpu_masked_hamming(
         *_ham_args(frames, rows, lo, hi, out, W, strides)))
-    masked_hamming.launches += 1
     return out
 
 
@@ -156,7 +155,9 @@ def masked_hamming(frames: torch.Tensor, rows: torch.Tensor,
     W, strides = _word_major(frames, rows, lo, hi)
     if _device_kind(lo) == "cpu":
         return masked_hamming_ref(frames, rows, lo, hi)
-    return _launch(frames, rows, lo, hi, W, strides)
+    out = _launch(frames, rows, lo, hi, W, strides)
+    masked_hamming.launches += 1
+    return out
 
 
 def masked_hamming_rows(frames: torch.Tensor, rows: torch.Tensor,
@@ -170,7 +171,9 @@ def masked_hamming_rows(frames: torch.Tensor, rows: torch.Tensor,
     if _device_kind(lo) == "cpu":
         return masked_hamming_ref(frames.movedim(-1, 0),
                                   rows[..., :W].movedim(-1, 0), lo, hi)
-    return _launch(frames, rows, lo, hi, W, strides)
+    out = _launch(frames, rows, lo, hi, W, strides)
+    masked_hamming_rows.launches += 1
+    return out
 
 
 def masked_hamming_device_ms(frames, rows, lo, hi, row_major: bool = False,
@@ -336,4 +339,5 @@ def launch_floor_device_ms(device="cuda", reps: int = 200) -> float:
 
 
 masked_hamming.launches = 0
+masked_hamming_rows.launches = 0
 verify_rows.launches = 0

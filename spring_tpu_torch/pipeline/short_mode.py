@@ -71,7 +71,12 @@ LAST_STAGE_SECONDS: dict[str, float] = {}
 
 def compress_short(files: list[str], writer: ArchiveWriter,
                    cp: P.CompressionParams, num_threads: int = 8,
-                   device="cuda", _scanned=None) -> None:
+                   device="cuda", _scanned=None, world=None) -> None:
+    """``world`` (a parallel.multihost.World) routes the reorder through
+    the distributed engine. Every rank of it makes this same call on the
+    same input; rank 0 goes on to write the archive, the other ranks
+    return once the engine has run (nothing after it is collective)."""
+    primary = world is None or world.rank == 0
     if _scanned is None:    # a shard adds its stages to the outer call's
         LAST_STAGE_SECONDS.clear()
     _t = time.time()
@@ -84,7 +89,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         _t = now
 
     block = cp.num_reads_per_block
-    want_q = cp.preserve_quality and not cp.fasta_input
+    want_q = cp.preserve_quality and not cp.fasta_input and primary
     # streaming load: inputs are mmap'd, scanned, then parsed
     # record-parallel straight into packed 2-bit rows with a sparse N
     # overlay (reference: src/preprocess.cpp:141-285)
@@ -106,7 +111,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         if _scanned is not None:
             raise RuntimeError("shard slicing exceeded the read cap")
         _compress_sharded(files, writer, cp, num_threads, bufs, infos, cap,
-                          device)
+                          device, world)
         return
     cp.num_reads = n
     cp.num_blocks = -(-n // block) if n else 0
@@ -313,14 +318,25 @@ def compress_short(files: list[str], writer: ArchiveWriter,
               + packing.codes_to_bitstream_2bit(
                   seq_codes[None, :], np.array([len(seq_codes)])))
 
-    if len(clean_rids) and maxlen >= 32:
+    use_engine = len(clean_rids) > 0 and maxlen >= 32
+    if use_engine:
         c_len = lengths[clean_rids]
-        # the clean-row gather happens on the device (engine `select`)
-        engine = eng.ReorderEngine(
-            packed_buf, lengths, eng.ReorderConfig(max_readlen=maxlen),
-            select=clean_rids, device=device)
+        if world is not None:
+            from ..parallel import dist as dist_mod
+            engine = dist_mod.DistReorderEngine(
+                np.ascontiguousarray(packed_all[clean_rids]), c_len,
+                dist_mod.DistConfig(max_readlen=maxlen), world=world)
+        else:
+            # the clean-row gather happens on the device (engine `select`)
+            engine = eng.ReorderEngine(
+                packed_buf, lengths, eng.ReorderConfig(max_readlen=maxlen),
+                select=clean_rids, device=device)
         mark("dict_build")
-        emissions = engine.run(progress=_progress)
+        emissions = engine.run(progress=_progress if primary else None)
+    if not primary:
+        pool.shutdown()
+        return
+    if use_engine:
         _submit_deferred()      # zero-flush runs never fire the callback
         mark("reorder_run")
         # contigs below MIN_CONTIG_READS join the leftover pool and
@@ -598,7 +614,7 @@ def _slice_scan(info, a: int, b: int, stride: int):
 
 
 def _compress_sharded(files, writer, cp, num_threads, bufs, infos,
-                      cap: int, device) -> None:
+                      cap: int, device, world=None) -> None:
     stride = fastq_native.ckpt_stride()
     nfiles = len(files)
     per_file = infos[0].n
@@ -626,7 +642,7 @@ def _compress_sharded(files, writer, cp, num_threads, bufs, infos,
         sub = [_slice_scan(i, a, b, stride) for i in infos]
         pw = _ShardWriter(writer, f"sh{j}/")
         compress_short(files, pw, cpj, num_threads, device=device,
-                       _scanned=(bufs, sub))
+                       _scanned=(bufs, sub), world=world)
         pw.add("params.json", cpj.to_json().encode())
         shard_reads.append(cpj.num_reads)
         maxlen = max(maxlen, cpj.max_readlen)

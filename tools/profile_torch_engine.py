@@ -1,6 +1,7 @@
 """Profile the port's reorder engine on a CUDA card with torch.profiler.
 
     python tools/profile_torch_engine.py [--reads 1000000] [--out DIR]
+                                         [--dist [--no-group]]
 
 Builds SRR554369-class packed reads in memory (1% substitutions, both
 strands, ~50x coverage, seed 42), runs spring_tpu_torch's ReorderEngine
@@ -17,6 +18,12 @@ one call a round. Launches a round are all of the run's device kernels
 (dictionary build and flush compaction included) over the rounds run (the
 speculative last flush included). Both are printed beside what the round
 took before the verify was fused (BEFORE_FUSION, from PERF.md).
+With --dist the engine is the distributed one (parallel/dist.py) at
+world size 1 over NCCL: its round's kernel is masked_hamming_rows
+(masked_hamming_kernel in the trace), and the NCCL kernels are listed.
+With --no-group the same engine runs with one rank and no process group,
+so that its collectives are the identity: the difference is what NCCL
+costs a round. The warm-up run's ms/round (no profiler) is printed too.
 Needs a CUDA card.
 """
 import argparse
@@ -54,6 +61,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reads", type=int, default=1_000_000)
     ap.add_argument("--out", default="chiprun_out")
+    ap.add_argument("--dist", action="store_true",
+                    help="profile the distributed engine at world size 1 "
+                         "over NCCL")
+    ap.add_argument("--no-group", action="store_true",
+                    help="with --dist: one rank and no process group")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -68,17 +80,39 @@ def main() -> int:
     from spring_tpu_torch.reorder import engine as eng
 
     packed, lengths = make_reads(args.reads)
-    cfg = eng.ReorderConfig(max_readlen=100)
-    eng.ReorderEngine(packed, lengths, cfg, device="cuda").run()  # warm-up
-    torch.cuda.synchronize()
-
-    e = eng.ReorderEngine(packed, lengths, cfg, device="cuda")
-    t = time.time()
-    e.dicts                                   # dictionary build alone
-    torch.cuda.synchronize()
-    build_s = time.time() - t
-    e._dicts = None
-    wrapper = kernels.verify_rows
+    if args.dist:
+        import tempfile
+        from spring_tpu_torch.parallel import dist, multihost
+        store = tempfile.TemporaryDirectory(prefix="profile_store_")
+        if args.no_group:
+            world = multihost.World(None, 0, 1, torch.device("cuda", 0))
+        else:
+            world = multihost.initialize(
+                0, 1, os.path.join(store.name, "s"), device="cuda")
+        dcfg = dist.DistConfig(max_readlen=100)
+        dist.DistReorderEngine(packed, lengths, dcfg, world=world).run()
+        torch.cuda.synchronize()
+        e = dist.DistReorderEngine(packed, lengths, dcfg, world=world)
+        rows = multihost.put_sharded(world, e.packed)
+        torch.cuda.synchronize()
+        t = time.time()
+        e._prog["build"](rows)                # dictionary build alone
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        del rows
+        wrapper, kernel_name = kernels.masked_hamming_rows, "masked_hamming"
+    else:
+        cfg = eng.ReorderConfig(max_readlen=100)
+        eng.ReorderEngine(packed, lengths, cfg, device="cuda").run()
+        torch.cuda.synchronize()              # the warm-up run
+        e = eng.ReorderEngine(packed, lengths, cfg, device="cuda")
+        t = time.time()
+        e.dicts                               # dictionary build alone
+        torch.cuda.synchronize()
+        build_s = time.time() - t
+        e._dicts = None
+        wrapper, kernel_name = kernels.verify_rows, "verify_rows"
+    warm = dict(eng.LAST_RUN_STATS)
     wrapper.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -91,7 +125,7 @@ def main() -> int:
     # kernel rows only: an aten op's row repeats its kernels' time
     dev_rows = [k for k in ka if str(k.device_type).endswith("CUDA")]
     dev_us = sum(k.self_device_time_total for k in dev_rows)
-    ours = [k for k in dev_rows if "verify_rows" in k.key]
+    ours = [k for k in dev_rows if kernel_name in k.key]
     calls = sum(k.count for k in ours)
     ours_us = sum(k.self_device_time_total for k in ours)
     if calls != wrapper.launches or calls == 0:
@@ -99,7 +133,17 @@ def main() -> int:
                          f"calls of the round's kernel, the wrapper "
                          f"counted {wrapper.launches}")
     n_dev = sum(k.count for k in dev_rows)
-    print(f"[engine] {args.reads} reads: dict build {build_s:.3f} s; "
+    which = "engine"
+    if args.dist:
+        which = ("distributed engine, world size 1 over NCCL"
+                 if not args.no_group else
+                 "distributed engine, one rank, no group")
+    print(f"[engine] {which}; warm-up run without the profiler: "
+          f"{warm['rounds']} rounds, {warm['ms_per_round']} ms/round"
+          + (f"; host time inside the {warm['collectives']} collective "
+             f"calls {warm['collective_host_s']} s of "
+             f"{warm['flush_wall_s']} s" if args.dist else ""))
+    print(f"[engine] {which}; {args.reads} reads: dict build {build_s:.3f} s; "
           f"run {wall:.3f} s, {stats['rounds']} rounds, "
           f"{stats['ms_per_round']} ms/round; kernel launches "
           f"{wrapper.launches}")
@@ -115,11 +159,21 @@ def main() -> int:
           f"the fusion: {BEFORE_FUSION['launches_a_round']} a round)")
     table = ka.table(sort_by="self_device_time_total", row_limit=-1)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "engine_ops.txt"), "w") as f:
+    name = "dist_engine_ops.txt" if args.dist else "engine_ops.txt"
+    with open(os.path.join(args.out, name), "w") as f:
         f.write(table)
     lines = table.splitlines()
     print("\n".join(lines[:25]))
-    print("\n".join(ln for ln in lines if "verify_rows" in ln))
+    print("\n".join(ln for ln in lines
+                    if kernel_name in ln or "nccl" in ln.lower()))
+    if args.dist:
+        nccl = [k for k in dev_rows if "nccl" in k.key.lower()]
+        print(f"[engine] NCCL kernels: {sum(k.count for k in nccl)} calls, "
+              f"{sum(k.self_device_time_total for k in nccl) / 1e3:.3f} ms "
+              f"device in all; collectives counted by the world: "
+              f"{stats['collectives']}")
+        multihost.shutdown()
+        store.cleanup()
     return 0
 
 
