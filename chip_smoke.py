@@ -24,8 +24,9 @@ Phases, each printing its numbers on a line of its own:
      enqueue time;
   4. a 16,384-read set compressed on the card and on the CPU: the two
      archives must be byte-equal (the CPU path is held to the JAX
-     package's output by tests/test_torch_*.py); this also warms the card
-     up;
+     package's output by tests/test_torch_*.py), and the card's engine
+     must have replayed its captured round at least twice and compacted
+     its seed queue at least once; this also warms the card up;
   5. the main path: 1,000,000 single-end 100 bp reads
      (synth.make_se(genome_size=2_000_000, seed=42), ~50x coverage)
      compressed with spring_tpu_torch.api.compress(device="cuda"),
@@ -58,6 +59,13 @@ Phases, each printing its numbers on a line of its own:
      round trip byte-exact, the same numbers as phase 8. With one card it
      prints one line saying so. It never puts two ranks on one card and
      never moves to the CPU.
+Every engine run on the card (phases 4-9) runs its flushes on the flush
+runner (spring_tpu_torch/reorder/engine.py): the first flush called, as
+the warm-up, every later one a replayed CUDA graph. Its line gives rounds,
+rounds run, graphed flushes, round replays, capture+instantiate seconds,
+the graph pool, ms a round and engine seconds, and a run in which any
+flush but the first was not replayed fails. Launch counts and
+collectives are counted at each replay of a graph that holds them.
 Then one JSON line of kernel results (launches summed over phases 5-9,
 each entry's device time beside its bound on this card) and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
@@ -369,6 +377,35 @@ def to_fasta(fq: str, out: str) -> None:
 KERNEL_NAMES = ("verify_rows", "masked_hamming_rows", "masked_hamming")
 
 
+def engine_line(stats: dict) -> str:
+    """One engine run's numbers from engine.LAST_RUN_STATS."""
+    return (f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
+            f"{stats['graphed_flushes']} of {stats['flushes']} flushes "
+            f"replayed as CUDA graphs, {stats['round_replays']} round "
+            f"replays; capture+instantiate {stats['capture_s']} s; graph "
+            f"pool {stats['graph_pool_bytes']} bytes; "
+            f"{stats['queue_compactions']} queue compactions; "
+            f"{stats['ms_per_round']} ms a round ({stats['warmup_s']} s to "
+            f"the capture, {stats['ms_per_graphed_round']} ms a replayed "
+            f"round after it); engine {stats['flush_wall_s']} s")
+
+
+def need_graphs(what: str, stats: dict, replays: int = 1,
+                compactions: int = 0) -> None:
+    """Every flush of an engine run on the card but the first (the
+    warm-up) must have been a replayed graph, the round replayed at least
+    ``replays`` times, and the seed queue compacted at least
+    ``compactions`` times."""
+    if (stats["flushes"] < 2
+            or stats["graphed_flushes"] != stats["flushes"] - 1
+            or stats["round_replays"] < replays
+            or stats["queue_compactions"] < compactions):
+        raise AssertionError(f"{what}: want every flush but the first "
+                             f"replayed as CUDA graphs, at least {replays} "
+                             f"round replays and {compactions} queue "
+                             f"compactions; engine {stats}")
+
+
 def zero_counts(kernels) -> None:
     """Set every wrapper's launch count to 0."""
     for name in KERNEL_NAMES:
@@ -489,10 +526,11 @@ def main() -> int:
             total[name] += n
         return secs, counts[path], dict(engine.LAST_RUN_STATS)
 
-    def need_launches(what, n, rounds):
-        if n <= 0 or n < rounds:
+    def need_launches(what, n, stats):
+        if n <= 0 or n < stats["rounds"]:
             raise AssertionError(f"{what} launched the kernel {n} times "
-                                 f"in {rounds} rounds")
+                                 f"in {stats['rounds']} rounds")
+        need_graphs(what, stats)
 
     opts = api.CompressOptions(num_threads=THREADS, verbose=False)
 
@@ -503,14 +541,18 @@ def main() -> int:
                       n_rate=0.0005)
         a_gpu = os.path.join(tmp, "gpu.stpu")
         a_cpu = os.path.join(tmp, "cpu.stpu")
+        engine.LAST_RUN_STATS.clear()
         t = time.time()
         api.compress([fq2], a_gpu, opts, device="cuda")
         torch.cuda.synchronize()
         small_s = time.time() - t
+        stats = dict(engine.LAST_RUN_STATS)
         api.compress([fq2], a_cpu, opts, device="cpu")
         same_bytes(a_gpu, a_cpu, "16k-read archive, card against CPU path")
+        need_graphs("phase 4", stats, replays=2, compactions=1)
         log(f"[check] {N_SMALL}-read archive: card and CPU path byte-equal "
-            f"(card compress {small_s:.3f} s)")
+            f"(card compress {small_s:.3f} s); card engine: "
+            f"{engine_line(stats)}")
 
         # ---- phase 5: 1M SE reads, order-preserving
         fq = os.path.join(tmp, "in.fastq")
@@ -535,9 +577,9 @@ def main() -> int:
             f"{peak} bytes")
         log(f"[main] stages_s {json.dumps(stages)}")
         log(f"[main] engine {json.dumps(stats)}")
-        log(f"[main] verify_rows launches {launches} over "
-            f"{stats['rounds']} rounds")
-        need_launches("the main path", launches, stats["rounds"])
+        log(f"[main] engine: {engine_line(stats)}; verify_rows launches "
+            f"{launches} on {card}")
+        need_launches("the main path", launches, stats)
         single = dict(archive=os.path.getsize(arc),
                       engine_s=stats["flush_wall_s"])
         for f in (arc, out):        # phase 8 compresses fq again
@@ -578,7 +620,8 @@ def main() -> int:
             f"{peak} bytes; on {card}")
         log(f"[pe-r] stages_s {json.dumps(stages)}")
         log(f"[pe-r] engine {json.dumps(stats)}")
-        need_launches("the PE -r path", launches, stats["rounds"])
+        log(f"[pe-r] engine: {engine_line(stats)}")
+        need_launches("the PE -r path", launches, stats)
         for f in (p1, p2, o1, o2, arc):
             os.remove(f)
 
@@ -617,8 +660,7 @@ def main() -> int:
                 params.MAX_NUM_READS_SHORT = full_cap
             same_bytes(a_gpu, a_cpu, f"{name} archive, card against CPU")
             if not fields.get("long_mode"):
-                need_launches(f"the {name} path", launches,
-                              stats.get("rounds", 0))
+                need_launches(f"the {name} path", launches, stats)
             if cap:
                 with ArchiveReader(a_gpu) as r:
                     if len(r.params.shard_reads) != N_SMALL // cap:
@@ -642,7 +684,8 @@ def main() -> int:
                 trip = "round trip byte-exact"
             log(f"[mode] {name}: card and CPU archives byte-equal "
                 f"({os.path.getsize(a_gpu)} bytes); {trip}; card compress "
-                f"{secs:.3f} s; launches {launches}")
+                f"{secs:.3f} s; launches {launches}"
+                + (f"; engine: {engine_line(stats)}" if stats else ""))
         # one read range of the PE archive, over the global index space
         # (file-1 reads, then file-2 reads), straddling the file boundary
         lo, hi = N_SMALL - 384, N_SMALL + 616
@@ -674,6 +717,7 @@ def main() -> int:
                 raise AssertionError(
                     f"{tag}: {launches} launches of masked_hamming_rows, "
                     f"engine {stats}")
+            need_graphs(tag, stats)
             log(f"[{tag}] world size {n} over NCCL: compress {secs:.3f} s = "
                 f"{N_READS / secs:.1f} reads/s; round trip byte-exact; "
                 f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
@@ -681,12 +725,14 @@ def main() -> int:
                 f"{stats.get('unmatched_frac')}; archive {size} bytes "
                 f"(single engine {single['archive']}); peak device memory "
                 f"{peak} bytes; collectives a round "
-                f"{stats['collectives_per_round']} (host time inside all "
-                f"{stats['collectives']} calls "
-                f"{stats['collective_host_s']} s); masked_hamming_rows "
-                f"launches {launches}; engine {stats['flush_wall_s']} s = "
+                f"{stats['collectives_per_round']} ({stats['collectives']} "
+                f"in all, counted at each replay; host time inside them not "
+                f"measured: graphs replay them with no host call); "
+                f"masked_hamming_rows launches {launches}; engine "
+                f"{stats['flush_wall_s']} s = "
                 f"{stats['flush_wall_s'] / single['engine_s']:.3f} of the "
-                f"single engine's {single['engine_s']} s; on {card}")
+                f"single engine's {single['engine_s']} s; engine: "
+                f"{engine_line(stats)}; on {card}")
             os.remove(arc)
             os.remove(out)
 

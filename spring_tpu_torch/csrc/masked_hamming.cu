@@ -319,7 +319,11 @@ cudaError_t timed(L launch, int reps, float* ms, cudaStream_t stream) {
 }
 
 // Makes `device` current for the scope (the launch goes to the card that
-// holds the tensors, whatever the caller's current device is).
+// holds the tensors, whatever the caller's current device is). A CUDA
+// graph's capture runs with that card current (ops/graphs.py), so under
+// capture the scope only reads the current device; and at the reorder
+// round's shapes a verify block needs under 48 KB of shared memory, so
+// launch_verify makes no attribute call there either.
 struct DeviceScope {
   int prev = -1;
   bool moved = false;

@@ -16,7 +16,9 @@ takes row-major (B, M, W) frames and (B, M, W+1) rows (the length word is
 not read). All three run csrc/masked_hamming.cu on CUDA tensors and their
 plain version (``verify_rows_ref``, ``masked_hamming_ref``) on CPU tensors;
 any other device raises, and nothing falls back on the card. Each wrapper
-adds one to its own ``launches`` where it launches its kernel. The
+adds one to its own ``launches`` where it launches its kernel, through
+``graphs.count``: a launch captured into a CUDA graph counts at each
+replay of the graph, not at the capture. The
 ``*_device_ms`` functions time launches on the card with no host call
 between them (a replayed CUDA graph of ``reps`` launches).
 """
@@ -26,7 +28,7 @@ import ctypes
 
 import torch
 
-from . import bits
+from . import bits, graphs
 
 _I32 = torch.int32
 
@@ -156,7 +158,7 @@ def masked_hamming(frames: torch.Tensor, rows: torch.Tensor,
     if _device_kind(lo) == "cpu":
         return masked_hamming_ref(frames, rows, lo, hi)
     out = _launch(frames, rows, lo, hi, W, strides)
-    masked_hamming.launches += 1
+    graphs.count(masked_hamming)
     return out
 
 
@@ -172,7 +174,7 @@ def masked_hamming_rows(frames: torch.Tensor, rows: torch.Tensor,
         return masked_hamming_ref(frames.movedim(-1, 0),
                                   rows[..., :W].movedim(-1, 0), lo, hi)
     out = _launch(frames, rows, lo, hi, W, strides)
-    masked_hamming_rows.launches += 1
+    graphs.count(masked_hamming_rows)
     return out
 
 
@@ -300,7 +302,7 @@ def verify_rows(rows_tab: torch.Tensor, cand: torch.Tensor,
     from . import _build
     out = _verify_launch(_build.load().stpu_verify_rows, dims, thresh,
                          tensors)
-    verify_rows.launches += 1
+    graphs.count(verify_rows)
     return out
 
 

@@ -177,8 +177,8 @@ def _probe_meta_sc(btab: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
 def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                    SC: int, accept_slots: int, starts: tuple, thresh: int,
                    capf: float) -> dict:
-    """The build and flush functions of one rank for one static shape
-    signature, and the sizes that follow from it."""
+    """The build, flush and flush-runner functions of one rank for one
+    static shape signature, and the sizes that follow from it."""
     n = world.size
     if n & (n - 1):
         raise ValueError(f"world size {n} is not a power of two")
@@ -502,38 +502,51 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
 
     # ---------------- the flush (FLUSH_ROUNDS rounds) ----------------
 
-    def flush_fn(state, btab, pairs, rows_local, seed_slice, maxshift):
-        """FLUSH_ROUNDS rounds, then each walker's stacked emissions
-        compacted once by a stable sort that puts empty slots last.
-        Returns (state, buf (Bl, CAP, 2), stats (1, 4)) with stats =
-        (claimed bits, queue_pos, active walkers, emitted rows)."""
+    def flush_runner(state, btab, pairs, rows_local, seed_slice,
+                     maxshift) -> eng.FlushRunner:
+        """A FlushRunner over these tensors, as the single engine's
+        (reorder/engine.py): they are its static buffers, the state's
+        tensors change in place, and the caller changes ``seed_slice``,
+        ``state["n_queue"]`` and ``state["queue_pos"]`` in place only;
+        maxshift may be an int. A flush runs FLUSH_ROUNDS rounds, then
+        compacts each walker's stacked emissions once by a stable sort
+        that puts empty slots last, and returns (buf (Bl, CAP, 2), stats
+        (1, 4)) with stats = (claimed bits, queue_pos, active walkers,
+        emitted rows). On CUDA the round's seven collectives are captured
+        with it."""
         dev = state["counts"].device
-        cnt = torch.zeros(Bl, dtype=torch.int32, device=dev)
-        ys = []
-        for _ in range(eng.FLUSH_ROUNDS):
-            room = cnt < CAP - S_EMIT
-            state, emit = round_fn(state, btab, pairs, rows_local,
-                                   seed_slice, maxshift, room)
-            cnt = cnt + (emit[:, :, 0] >= 0).sum(dim=1).to(torch.int32)
-            ys.append(emit)
-        em = torch.stack(ys, dim=1).reshape(
-            Bl, eng.FLUSH_ROUNDS * S_EMIT, 2)
-        empty = (em[:, :, 0] < 0).to(torch.int32)
-        _, perm = torch.sort(empty, dim=1, stable=True)
-        buf = torch.stack([torch.gather(em[:, :, 0], 1, perm)[:, :CAP],
-                           torch.gather(em[:, :, 1], 1, perm)[:, :CAP]],
-                          dim=-1)
-        # the claimed popcount is taken on the replicated bitmap, so it is
-        # the same on every rank
-        stats = torch.stack([
-            bits.popcount32(state["claimed"][: Np // 32]).sum(),
-            state["queue_pos"][0].to(torch.int64),
-            state["active"].sum(),
-            cnt.sum()]).to(torch.int32)[None, :]
-        return state, buf, stats
+        maxshift = torch.as_tensor(maxshift, dtype=torch.int32, device=dev)
 
-    return dict(build=build_fn, flush=flush_fn, CAP=CAP, Bl=Bl, Npl=Npl,
-                M=M)
+        def step(room):
+            return round_fn(state, btab, pairs, rows_local, seed_slice,
+                            maxshift, room)
+
+        def compact(em, cnt):
+            empty = (em[:, :, 0] < 0).to(torch.int32)
+            _, perm = torch.sort(empty, dim=1, stable=True)
+            buf = torch.stack([torch.gather(em[:, :, 0], 1, perm)[:, :CAP],
+                               torch.gather(em[:, :, 1], 1, perm)[:, :CAP]],
+                              dim=-1)
+            # the claimed popcount is taken on the replicated bitmap, so it
+            # is the same on every rank
+            stats = torch.stack([
+                bits.popcount32(state["claimed"][: Np // 32]).sum(),
+                state["queue_pos"][0].to(torch.int64),
+                state["active"].sum(),
+                cnt.sum()]).to(torch.int32)[None, :]
+            return buf, stats
+
+        return eng.FlushRunner(state, step, compact, S_EMIT, CAP)
+
+    def flush_fn(state, btab, pairs, rows_local, seed_slice, maxshift):
+        """One flush on a new runner over these tensors (see
+        flush_runner): (state, buf, stats)."""
+        runner = flush_runner(state, btab, pairs, rows_local, seed_slice,
+                              maxshift)
+        return (runner.state, *runner.flush())
+
+    return dict(build=build_fn, flush=flush_fn, runner=flush_runner,
+                CAP=CAP, Bl=Bl, Npl=Npl, M=M)
 
 
 class DistReorderEngine:
@@ -630,9 +643,11 @@ class DistReorderEngine:
             progress=None) -> np.ndarray:
         """Full distributed reorder. Returns filtered walker-major
         (rid, flag, pos_delta, rc) rows like ReorderEngine.run, the same
-        on every rank. The host loop keeps the JAX engine's pipelining:
-        flush k+1 is dispatched before flush k's stats are read, and the
-        speculative last flush is harvested."""
+        on every rank. The flushes run on one FlushRunner (on the card a
+        replayed CUDA graph, collectives included). The host loop keeps
+        the JAX engine's pipelining: flush k+1 is dispatched before flush
+        k's stats are read, and the speculative last flush is
+        harvested."""
         self._check_live()
         prog = self._prog
         w = self.world
@@ -652,30 +667,29 @@ class DistReorderEngine:
         state = self.init_state()
         qslice, nq_arr = self._queue_slices(queue)
         state["n_queue"] = mh.put_sharded(w, nq_arr)
+        # the seed queue lives in static buffers: compaction rewrites them
         seed_dev = mh.put_sharded(w, qslice)
-        maxshift = self.cfg.max_shift
+        runner = prog["runner"](state, btab, pairs, rows_dev, seed_dev,
+                                self.cfg.max_shift)
         chunks = []
-        rounds = 0
+        rounds = compactions = 0
         round_collectives = 0
         eng.LAST_RUN_STATS.clear()
         t_start = time.time()
 
         def dispatch():
-            nonlocal state, round_collectives
+            nonlocal round_collectives
             before = w.collectives
-            state, buf, stats = prog["flush"](state, btab, pairs, rows_dev,
-                                              seed_dev, maxshift)
+            out = runner.flush()
             round_collectives += w.collectives - before
-            return buf, stats
+            return out
 
         def harvest(buf_k):
             return _compact_emit(mh.to_host(w, buf_k))
 
         inflight = dispatch()
-        flushes = 1
         while True:
             nxt = dispatch()
-            flushes += 1
             buf_k, stats_k = inflight
             inflight = nxt
             stats_np = mh.to_host(w, stats_k).reshape(n, 4)
@@ -703,24 +717,30 @@ class DistReorderEngine:
                 if len(remaining) < int(nq_arr.sum()):
                     queue = remaining
                     qslice, nq_arr = self._queue_slices(queue)
-                    seed_dev = mh.put_sharded(w, qslice)
-                    state["n_queue"] = mh.put_sharded(w, nq_arr)
-                    state["queue_pos"] = mh.put_sharded(
-                        w, np.zeros(n, np.int32))
+                    seed_dev.copy_(mh.put_sharded(w, qslice))
+                    state["n_queue"].copy_(mh.put_sharded(w, nq_arr))
+                    state["queue_pos"].zero_()
+                    compactions += 1
         # drain the speculative in-flight flush
         chunks.append(harvest(inflight[0]))
         out = eng._emissions_from_chunks(chunks)
         dt = time.time() - t_start
+        rstats = runner.stats()
         eng.LAST_RUN_STATS.update(
             rounds=rounds, flush_wall_s=round(dt, 3),
             ms_per_round=round(1000 * dt / max(rounds, 1), 2),
             emitted=int(len(out)), walkers=self.B, world_size=n,
             emissions_sha256=hashlib.sha256(out.tobytes()).hexdigest(),
-            rounds_run=flushes * eng.FLUSH_ROUNDS,
+            rounds_run=runner.flushes * eng.FLUSH_ROUNDS,
+            queue_compactions=compactions,
             collectives=w.collectives - collectives0,
-            collective_host_s=round(w.collective_s - collective_s0, 3),
+            # host seconds inside the collectives, known only where every
+            # flush called them (a graph replays them with no host call)
+            collective_host_s=(round(w.collective_s - collective_s0, 3)
+                               if not rstats["graphed_flushes"] else None),
             collectives_per_round=round(
-                round_collectives / (flushes * eng.FLUSH_ROUNDS), 3))
+                round_collectives / (runner.flushes * eng.FLUSH_ROUNDS), 3),
+            **rstats)
         return out
 
 

@@ -27,7 +27,8 @@ tensors: ``all_to_all`` (dim 0 split in ``size`` equal tiles) and
 ``all_gather`` (tiled on dim 0). With no group both are the identity; with
 a group they call torch.distributed at every size, size 1 included, add
 one to ``World.collectives`` and the call's host time to
-``World.collective_s``.
+``World.collective_s``. A call captured into a CUDA graph
+(``ops/graphs.py``) counts at each replay and adds no host time.
 
 ``launch`` runs a function on n local ranks, one process each, for tests
 and smoke runs on one machine.
@@ -48,6 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from ..ops import graphs
+
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
@@ -58,8 +61,8 @@ class World:
     rank: int
     size: int
     device: torch.device        # where this rank's tensors live
-    collectives: int = 0        # torch.distributed calls made so far
-    collective_s: float = 0.0   # host seconds spent inside those calls
+    collectives: int = 0        # collectives run so far (graph replays too)
+    collective_s: float = 0.0   # host seconds inside the calls made eagerly
 
 
 def _resolve_device(device, local_rank: int | None = None) -> torch.device:
@@ -155,6 +158,15 @@ def put_sharded(world: World, x) -> torch.Tensor:
                       world.device)
 
 
+def _counted(world: World, t0: float) -> None:
+    """Count one collective of ``world`` that started at host time t0:
+    under a CUDA graph's capture it counts at each replay, and its host
+    time (the capture's, not a run's) is not added."""
+    if not graphs.capturing():
+        world.collective_s += time.perf_counter() - t0
+    graphs.count(world, "collectives")
+
+
 def all_to_all(world: World, x: torch.Tensor) -> torch.Tensor:
     """Tile j of dim 0 goes to rank j; the result holds, in rank order,
     the tiles the other ranks addressed to this one."""
@@ -167,8 +179,7 @@ def all_to_all(world: World, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     t = time.perf_counter()
     tdist.all_to_all_single(out, x, group=world.group)
-    world.collective_s += time.perf_counter() - t
-    world.collectives += 1
+    _counted(world, t)
     return out
 
 
@@ -182,8 +193,7 @@ def all_gather(world: World, x: torch.Tensor) -> torch.Tensor:
     t = time.perf_counter()
     tdist.all_gather(list(out.chunk(world.size, dim=0)), x,
                      group=world.group)
-    world.collective_s += time.perf_counter() - t
-    world.collectives += 1
+    _counted(world, t)
     return out
 
 

@@ -12,6 +12,7 @@ hash arithmetic runs in int64 on values in [0, 2^32).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -303,6 +304,15 @@ def probe_meta(btab: torch.Tensor, queries: torch.Tensor):
     return start.reshape(queries.shape), count.reshape(queries.shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _group_offsets(dict_of_g: tuple, S: int, device) -> torch.Tensor:
+    """(G,) int64 first bucket row of each group's dictionary, made once
+    per device: a host-to-device copy each round would also stop the
+    round from being captured into a CUDA graph."""
+    return torch.tensor([d * S for d in dict_of_g], dtype=torch.int64,
+                        device=device)
+
+
 def probe_meta_groups(btab_all: torch.Tensor, S: int, queries: torch.Tensor,
                       dict_of_g: np.ndarray):
     """Metadata probe of D stacked compact/wide tables (dict d's buckets at
@@ -312,9 +322,9 @@ def probe_meta_groups(btab_all: torch.Tensor, S: int, queries: torch.Tensor,
     B, G = queries.shape
     flat = bits.u32(queries.reshape(-1))
     b = bits.mul32(flat, _HASH_MULT) >> (32 - _log2(S))
-    off = torch.as_tensor(dict_of_g.astype(np.int64) * S,
-                          device=queries.device)[None, :]
-    b = (b.reshape(B, G) + off).reshape(-1)
+    off = _group_offsets(tuple(int(d) for d in dict_of_g), S,
+                         queries.device)
+    b = (b.reshape(B, G) + off[None, :]).reshape(-1)
     start, count = _meta_from_rows(bits.u32(btab_all[b]), flat)
     return start.reshape(B, G), count.reshape(B, G)
 

@@ -8,11 +8,15 @@ verified read (first walker wins a contested read), updates its packed
 u8x4 consensus counts, and emits (rid, delta|flag|rc) slots. Reference
 analog: the greedy consensus-following walk of src/reorder.h:432-616.
 
-The round and the flush (FLUSH_ROUNDS rounds, then a per-walker
-compaction of the emissions) are plain functions over tensors on the
-engine's device; the JAX program's lax.scan is a Python loop. Packed
-words are int32 bit patterns (ops/bits.py). Every stage is integer-only
-and deterministic, so emissions equal the JAX engine's exactly.
+The round is a plain function over tensors on the engine's device. A
+flush (FLUSH_ROUNDS rounds, then a per-walker compaction of the
+emissions) runs on a ``FlushRunner`` over static buffers, the counterpart
+of the JAX program's jitted lax.scan: on CUDA one round and the
+compaction are each captured once into a CUDA graph and replayed, flush
+after flush; on the CPU the same steps are called on the same buffers.
+Packed words are int32 bit patterns (ops/bits.py). Every stage is
+integer-only and deterministic, so emissions equal the JAX engine's
+exactly.
 """
 from __future__ import annotations
 
@@ -24,14 +28,15 @@ import numpy as np
 import torch
 
 from .. import params as P
-from ..ops import bits, kernels
+from ..ops import bits, graphs, kernels
 from . import dictionary as dct
 
 FLUSH_ROUNDS = 32      # rounds between host syncs
 CAP_PER_ROUND = 3      # emission-buffer slots per walker per round (SC=16)
 _BIG = 2**31 - 1
 
-# stats of the most recent run(): rounds, flush wall, emitted rows
+# stats of the most recent run(): rounds, flush wall, emitted rows, and
+# the flush runner's own (see FlushRunner.stats)
 LAST_RUN_STATS: dict = {}
 
 
@@ -179,7 +184,8 @@ def _assemble_rows(full: torch.Tensor, sel: torch.Tensor,
 
 def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
                    starts: tuple, thresh: int):
-    """Build (round_fn, flush_fn, emit_cap) for one shape signature."""
+    """Build (round_fn, flush_fn, emit_cap, flush_runner) for one shape
+    signature."""
     D = len(starts)
     # static probe-group list in priority order: shift > orientation >
     # dict (the reference search order, src/reorder.h:479-557)
@@ -391,45 +397,175 @@ def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
                          claimed=claimed, queue_pos=queue_pos)
         return new_state, emit.to(torch.int32)
 
-    def flush_fn(state, lengths, dkeys, pairs_all, seed_order, n_real,
-                 maxshift, rows_tab):
-        """FLUSH_ROUNDS rounds, then each walker's emissions compacted by a
-        stable sort that puts empty slots last and scattered into a dense
-        walker-major prefix. Returns (state, dense, cnt, stats) with stats
-        = (claimed bits, queue_pos, active walkers, emitted rows)."""
+    def flush_runner(state, lengths, dkeys, pairs_all, seed_order, n_real,
+                     maxshift, rows_tab) -> FlushRunner:
+        """A FlushRunner over these tensors. They are its static buffers:
+        the state's tensors change in place flush by flush (the JAX flush
+        donates its state), and the caller changes ``seed_order`` or the
+        0-dim ``n_real`` and ``state["queue_pos"]`` in place only.
+        n_real and maxshift may be given as ints. A flush returns (dense,
+        cnt, stats): each walker's emissions of FLUSH_ROUNDS rounds,
+        compacted by a stable sort that puts empty slots last and
+        scattered into a dense walker-major prefix; stats = (claimed bits,
+        queue_pos, active walkers, emitted rows)."""
         B = state["counts"].shape[0]
         dev = state["counts"].device
-        cnt = torch.zeros(B, dtype=torch.int32, device=dev)
-        ys = []
-        for _ in range(FLUSH_ROUNDS):
-            room = cnt < CAP - S
-            state, emit = round_fn(state, lengths, dkeys, pairs_all,
-                                   seed_order, n_real, maxshift, rows_tab,
-                                   room)
-            cnt = cnt + (emit[:, :, 0] >= 0).sum(dim=1).to(torch.int32)
-            ys.append(emit)
-        em = torch.stack(ys, dim=1).reshape(B, FLUSH_ROUNDS * S, 2)
-        empty = (em[:, :, 0] < 0).to(torch.int32)
-        _, perm = torch.sort(empty, dim=1, stable=True)
-        w0 = torch.gather(em[:, :, 0], 1, perm)[:, :CAP]
-        w1 = torch.gather(em[:, :, 1], 1, perm)[:, :CAP]
-        # dense prefix: walker w's first cnt[w] slots move to
-        # [base[w], base[w]+cnt[w]) — walker-major, slot order kept
-        base = torch.cumsum(cnt, dim=0) - cnt
-        s_idx = torch.arange(CAP, dtype=torch.int32, device=dev)[None, :]
-        fill = s_idx < cnt[:, None]
-        dst = torch.where(fill, base[:, None] + s_idx, B * CAP).reshape(-1)
-        dense = torch.full((B * CAP + 1, 2), -1, dtype=torch.int32,
-                           device=dev)
-        dense[dst] = torch.stack([w0.reshape(-1), w1.reshape(-1)], dim=-1)
-        stats = torch.stack([
-            bits.popcount32(state["claimed"][: Np // 32]).sum(),
-            state["queue_pos"].to(torch.int64),
-            state["active"].sum(),
-            cnt.sum()]).to(torch.int32)
-        return state, dense, cnt, stats
+        n_real = torch.as_tensor(n_real, dtype=torch.int32, device=dev)
+        maxshift = torch.as_tensor(maxshift, dtype=torch.int32, device=dev)
 
-    return round_fn, flush_fn, CAP
+        def step(room):
+            return round_fn(state, lengths, dkeys, pairs_all, seed_order,
+                            n_real, maxshift, rows_tab, room)
+
+        def compact(em, cnt):
+            empty = (em[:, :, 0] < 0).to(torch.int32)
+            _, perm = torch.sort(empty, dim=1, stable=True)
+            w0 = torch.gather(em[:, :, 0], 1, perm)[:, :CAP]
+            w1 = torch.gather(em[:, :, 1], 1, perm)[:, :CAP]
+            # dense prefix: walker w's first cnt[w] slots move to
+            # [base[w], base[w]+cnt[w]) — walker-major, slot order kept
+            base = torch.cumsum(cnt, dim=0) - cnt
+            s_idx = torch.arange(CAP, dtype=torch.int32, device=dev)[None, :]
+            fill = s_idx < cnt[:, None]
+            dst = torch.where(fill, base[:, None] + s_idx,
+                              B * CAP).reshape(-1)
+            dense = torch.full((B * CAP + 1, 2), -1, dtype=torch.int32,
+                               device=dev)
+            dense[dst] = torch.stack([w0.reshape(-1), w1.reshape(-1)],
+                                     dim=-1)
+            stats = torch.stack([
+                bits.popcount32(state["claimed"][: Np // 32]).sum(),
+                state["queue_pos"].to(torch.int64),
+                state["active"].sum(),
+                cnt.sum()]).to(torch.int32)
+            return dense, cnt.clone(), stats
+
+        return FlushRunner(state, step, compact, S, CAP)
+
+    def flush_fn(state, lengths, dkeys, pairs_all, seed_order, n_real,
+                 maxshift, rows_tab):
+        """One flush on a new runner over these tensors (see
+        flush_runner): (state, dense, cnt, stats)."""
+        runner = flush_runner(state, lengths, dkeys, pairs_all, seed_order,
+                              n_real, maxshift, rows_tab)
+        return (runner.state, *runner.flush())
+
+    return round_fn, flush_fn, CAP, flush_runner
+
+
+class FlushRunner:
+    """Runs flushes over static buffers: the counterpart of the JAX
+    program's jitted lax.scan.
+
+    ``step(room)`` runs one round on ``state`` (read only) and returns
+    (new state, emissions (B, slots, 2)); ``room`` is False for a walker
+    whose flush buffer of ``cap`` slots has no room for another round.
+    ``compact(em, cnt)`` turns the flush's stacked emissions (B,
+    FLUSH_ROUNDS * slots, 2) and the per-walker counts of filled slots
+    into the flush's outputs; it must not return ``cnt`` itself (it is
+    zeroed for the next flush). A round writes the new state into
+    ``state``'s tensors and its emissions into row r of a stack, r a
+    device-side round counter: every tensor the steps touch keeps its
+    storage for the runner's life. flush() runs FLUSH_ROUNDS rounds and
+    the compaction, and returns clones of the outputs, so that they
+    outlive the flushes after it.
+
+    On the CPU the steps are called. On CUDA the first flush calls them
+    too, as the warm-up that capture needs (kernel loads, lazy inits, a
+    process group's communicator); its results count. Then one round and
+    the compaction are each captured once into a CUDA graph on the
+    state's device (ops/graphs.py), and every later flush replays them:
+    one graph launch a round. A capture that fails raises; nothing goes
+    back to the called steps on the card."""
+
+    def __init__(self, state: dict, step, compact, slots: int, cap: int):
+        B = state["counts"].shape[0]
+        self.device = dev = state["counts"].device
+        self.state = state
+        self._step, self._compact = step, compact
+        self._room = cap - slots
+        self._cnt = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._ys = torch.full((B, FLUSH_ROUNDS, slots, 2), -1,
+                              dtype=torch.int32, device=dev)
+        self._r = torch.zeros(1, dtype=torch.int64, device=dev)
+        self._graphs = None
+        self.flushes = 0
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        # host clock at the first flush and at the capture's start and end
+        self._t_first = self._t_capture = self._t_graphed = 0.0
+
+    def _round(self) -> None:
+        new, emit = self._step(self._cnt < self._room)
+        for k, v in new.items():
+            self.state[k].copy_(v)
+        self._cnt.add_((emit[:, :, 0] >= 0).sum(dim=1).to(torch.int32))
+        self._ys.index_copy_(1, self._r, emit[:, None])
+        self._r.add_(1)
+
+    def _epilogue(self) -> tuple:
+        B = self._ys.shape[0]
+        out = self._compact(self._ys.reshape(B, -1, 2), self._cnt)
+        self._cnt.zero_()
+        self._r.zero_()
+        return out
+
+    def flush(self) -> tuple:
+        if not self.flushes:
+            self._t_first = time.perf_counter()
+        if self.device.type == "cuda" and self.flushes:
+            if self._graphs is None:
+                self._capture()
+            rounds, epi = self._graphs
+            for _ in range(FLUSH_ROUNDS):
+                rounds.replay()
+            epi.replay()
+            outs = epi.outputs
+        else:
+            for _ in range(FLUSH_ROUNDS):
+                self._round()
+            outs = self._epilogue()
+        self.flushes += 1
+        return tuple(o.clone() for o in outs)
+
+    def _capture(self) -> None:
+        """Capture the round and the epilogue into two graphs that share
+        one memory pool; capture_s is the host time of both captures,
+        instantiation included, and pool_bytes what the device's reserved
+        memory grew by."""
+        dev = self.device
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        self._t_capture = time.perf_counter()
+        with torch.profiler.record_function("stpu::capture"):
+            rounds = graphs.Graph(self._round, dev)
+            epi = graphs.Graph(self._epilogue, dev, pool=rounds.pool)
+        torch.cuda.synchronize(dev)
+        self._t_graphed = time.perf_counter()
+        self.capture_s = self._t_graphed - self._t_capture
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self._graphs = (rounds, epi)
+
+    def stats(self) -> dict:
+        """The runner's numbers for LAST_RUN_STATS, taken when the run's
+        last flush has been read: warmup_s is the host time from the first
+        flush to the capture, ms_per_graphed_round the host time after
+        the capture over the rounds replayed (None where nothing was
+        captured)."""
+        if self._graphs is None:
+            return dict(flushes=self.flushes, graphed_flushes=0,
+                        round_replays=0, capture_s=None,
+                        graph_pool_bytes=None, warmup_s=None,
+                        ms_per_graphed_round=None)
+        rounds, epi = self._graphs
+        after = time.perf_counter() - self._t_graphed
+        return dict(
+            flushes=self.flushes, graphed_flushes=epi.replays,
+            round_replays=rounds.replays, capture_s=round(self.capture_s, 4),
+            graph_pool_bytes=self.pool_bytes,
+            warmup_s=round(self._t_capture - self._t_first, 4),
+            ms_per_graphed_round=round(1000 * after / rounds.replays, 3))
 
 
 class ReorderEngine:
@@ -472,7 +608,7 @@ class ReorderEngine:
         lengths_p = np.zeros(self.Np, np.int32)
         lengths_p[: self.N] = lengths_sel
         self.lengths = torch.as_tensor(lengths_p, device=self.device)
-        _, self._flush_fn, _ = _flush_program(
+        *_, self._flush_runner = _flush_program(
             self.Np, cfg.candidates, cfg.shift_chunk, cfg.accept_slots,
             tuple(w.start for w in self.windows), cfg.thresh)
 
@@ -548,8 +684,9 @@ class ReorderEngine:
         """Emissions (n_emitted, 4) int32 rows of (rid, flag, pos_delta,
         rc), walker-major, empty slots filtered out.
 
-        The loop keeps the JAX engine's pipelining exactly, since it
-        decides which reads seed which walkers: flush k+1 is dispatched
+        The flushes run on one FlushRunner (a replayed CUDA graph on the
+        card). The loop keeps the JAX engine's pipelining exactly, since
+        it decides which reads seed which walkers: flush k+1 is dispatched
         before flush k's stats are read, seed-queue compaction acts on
         stats one flush old, and the speculative last flush is
         harvested."""
@@ -563,7 +700,6 @@ class ReorderEngine:
                                for d in self._dicts], dim=0)
         for d in self._dicts:
             d.btab = None
-        lengths = self.lengths
         # strided seed order: the first B seeds spread over the input
         stride = max(self.N // self.B, 1)
         idx = np.arange(self.N, dtype=np.int32)
@@ -573,19 +709,16 @@ class ReorderEngine:
             [so, np.full(self.Np - len(so), self.Np - 1, np.int32)])
         queue = so[: self.N].astype(np.int32)
         n_real = len(queue)
+        # the seed queue lives in static buffers: compaction rewrites them
         seed_order = torch.as_tensor(so.astype(np.int32), device=dev)
-        maxshift = self.cfg.max_shift
+        n_real_dev = torch.tensor(n_real, dtype=torch.int32, device=dev)
+        runner = self._flush_runner(
+            state, self.lengths, dkeys, pairs_all, seed_order, n_real_dev,
+            self.cfg.max_shift, rows_tab)
         chunks = []
-        rounds = 0
+        rounds = compactions = 0
         LAST_RUN_STATS.clear()
         t_start = time.time()
-
-        def dispatch():
-            nonlocal state
-            state, dense, cnt, stats = self._flush_fn(
-                state, lengths, dkeys, pairs_all, seed_order, n_real,
-                maxshift, rows_tab)
-            return dense, cnt, stats
 
         def harvest(dense_k, cnt_k, emitted):
             """(walker, rid, word) rows of one flush — the walker column
@@ -597,10 +730,10 @@ class ReorderEngine:
             out[:, 1:] = dense_k[:emitted].cpu().numpy()
             return out
 
-        inflight = dispatch()
+        inflight = runner.flush()
         fetch_q = []
         while True:
-            nxt = dispatch()
+            nxt = runner.flush()
             dense_k, cnt_k, stats_k = inflight
             inflight = nxt
             stats_np = stats_k.cpu().numpy()
@@ -620,7 +753,8 @@ class ReorderEngine:
                 break
             # compact the seed queue: drop already-claimed reads so the
             # endgame doesn't burn rounds skipping them (reads the state
-            # of the flush just dispatched)
+            # of the flush just dispatched; the next flush reads the new
+            # queue from the same buffers)
             if (queue_pos > 0 and n_claimed < self.N
                     and self.N - n_claimed < 0.5 * n_real):
                 claimed_np = np.unpackbits(
@@ -630,13 +764,14 @@ class ReorderEngine:
                 queue = remaining
                 if not len(remaining):
                     continue
-                seed_order = torch.as_tensor(np.concatenate([
+                seed_order.copy_(torch.from_numpy(np.concatenate([
                     remaining,
                     np.full(self.Np - len(remaining), self.Np - 1,
-                            np.int32)]).astype(np.int32), device=dev)
+                            np.int32)]).astype(np.int32)))
                 n_real = len(remaining)
-                state["queue_pos"] = torch.zeros((), dtype=torch.int32,
-                                                 device=dev)
+                n_real_dev.fill_(n_real)
+                state["queue_pos"].zero_()
+                compactions += 1
         # drain the speculative in-flight flush and the pending harvests
         dense_k, cnt_k, stats_k = inflight
         emitted_tail = int(stats_k[3].item())
@@ -649,7 +784,9 @@ class ReorderEngine:
         LAST_RUN_STATS.update(
             rounds=rounds, flush_wall_s=round(dt, 3),
             ms_per_round=round(1000 * dt / max(rounds, 1), 2),
-            emitted=int(len(out)), walkers=self.B)
+            emitted=int(len(out)), walkers=self.B,
+            rounds_run=runner.flushes * FLUSH_ROUNDS,
+            queue_compactions=compactions, **runner.stats())
         return out
 
 

@@ -36,7 +36,7 @@ def entry():
     Np = int(rows.shape[0])
     cfg = jeng.ReorderConfig(max_readlen=96)
     starts = tuple(w.start for w in jeng.dct.default_windows(96))
-    t_round, t_flush, cap = teng._flush_program(
+    t_round, t_flush, cap, _ = teng._flush_program(
         Np, cfg.candidates, cfg.shift_chunk, cfg.accept_slots, starts,
         cfg.thresh)
     t_args = [convert.to_torch(np.asarray(a), "cpu") for a in
