@@ -14,7 +14,9 @@ Phases, each printing its numbers on a line of its own:
      reorder round's shape (B=4096 walkers x M=16 slots, W=7 words, SC=16
      shifts, a 2^20-row table; claimed bits, candidates below 0 and past
      the table, padding rows, empty ranges, negative offsets, both
-     orientations), and masked_hamming at the
+     orientations), the same at the round's shape of bench_torch.py's
+     10M reads (B=8192 walkers, a 2^24-row table), and masked_hamming at
+     the
      row-major round shape (4096 walkers, and the 2048 and 1024 that a
      rank of 2 or 4 holds) and the word-major (W=7, B=16384, K=128) shape
      with edge ranges. A kernel's time is the device's: CUDA events around
@@ -31,13 +33,14 @@ Phases, each printing its numbers on a line of its own:
      (synth.make_se(genome_size=2_000_000, seed=42), ~50x coverage)
      compressed with spring_tpu_torch.api.compress(device="cuda"),
      decompressed and byte-compared with the input; the fused kernel's
-     launch count over that compress must be at least the number of
-     rounds;
+     launch count over that compress must equal the rounds run, and the
+     flush program must be a cache miss (phase 4's shape differs) with one
+     round called;
   6. paired-end with read reordering at full size: 500,000 pairs
      (synth.make_pe, same genome and seed), CompressOptions(reorder=True)
      on the card, decompressed by the port; the multiset of
      (read 1, read 2) record pairs must be preserved and mates must stay
-     paired; launches at least the number of rounds;
+     paired; launches equal to the rounds run;
   7. the other modes at 16,384 reads or pairs each: PE order-preserving,
      SE ill_bin, SE qvz, SE FASTA, SE gzip in and out, a super-shard run
      (cap lowered to 8,192 reads) and long mode, each compressed on the
@@ -58,15 +61,25 @@ Phases, each printing its numbers on a line of its own:
      each, through multihost.launch: the emissions equal on every rank,
      round trip byte-exact, the same numbers as phase 8. With one card it
      prints one line saying so. It never puts two ranks on one card and
-     never moves to the CPU.
-Every engine run on the card (phases 4-9) runs its flushes on the flush
-runner (spring_tpu_torch/reorder/engine.py): the first flush called, as
-the warm-up, every later one a replayed CUDA graph. Its line gives rounds,
-rounds run, graphed flushes, round replays, capture+instantiate seconds,
-the graph pool, ms a round and engine seconds, and a run in which any
-flush but the first was not replayed fails. Launch counts and
+     never moves to the CPU;
+ 10. the large-input path: 2,000,000 SE reads (bench.py's profile,
+     genome 4,000,000, seed 42) compressed twice in this process with the
+     default options: the first call must stage its rows on the card
+     while it parses and prewarm the dictionary build, and miss the
+     program cache; the second must hit it, call no round and capture
+     nothing; the two archives byte-equal, the round trip byte-exact.
+Every engine run on the card (phases 4-10) runs its flushes on the flush
+runner (spring_tpu_torch/reorder/engine.py) from the program cache
+(spring_tpu_torch/ops/graphs.py): on a miss the first round called, then
+captured with the flush's compaction and replayed, on a hit every round
+replayed from the first flush on. Its line gives rounds, rounds run, the
+cache's state, rounds called, graphed flushes, round replays,
+capture+instantiate seconds, the graph pool, ms a round, engine seconds
+and the cache's bytes; a run with a second round called, a round or a
+compaction not replayed (but a miss's first compaction), a launch count
+other than the rounds run, or a capture on a hit fails. Launch counts and
 collectives are counted at each replay of a graph that holds them.
-Then one JSON line of kernel results (launches summed over phases 5-9,
+Then one JSON line of kernel results (launches summed over phases 5-10,
 each entry's device time beside its bound on this card) and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
 then not 0 and no result line is printed. Needs a CUDA card; imports
@@ -95,6 +108,9 @@ THREADS = 8
 N_PAIRS = 500_000
 N_SMALL = 16_384
 SHARD_CAP = 8_192
+# phase 10: bench.py's profile at 2M reads, the large-input path
+N_LARGE = 2_000_000
+GENOME_LARGE = 4_000_000
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # and the float32 rate outside the tensor cores, taken here as the rate of
@@ -307,6 +323,23 @@ def check_kernel(torch, kernels, thresh):
                                                                 thresh)),
         accepted=int(ok.sum()))
     del vargs, want, got
+    # ---- the fused verify at the round's shape of bench_torch.py's 10M
+    # reads: 8192 walkers (the REORDER_BATCH cap) over a 2^24-row table
+    B8, Np24, n10 = 8192, 1 << 24, 10_000_000
+    vargs = verify_inputs(torch, B8, M, W, SC, Np24, n10, SEED + 3)
+    want = kernels.verify_rows_ref(*vargs, thresh)
+    same("verify_rows at B=8192", kernels.verify_rows(*vargs, thresh), want)
+    ms, got = kernels.verify_rows_device_ms(*vargs, thresh)
+    same("verify_rows at B=8192 (timed launches)", got, want)
+    out["verify_rows"]["at_10M_reads"] = dict(
+        shape=f"B={B8} M={M} W={W} SC={SC} Np={Np24}",
+        **verify_bound(torch, vargs), ms=ms,
+        enqueue_ms=cuda_ms(torch, lambda: kernels.verify_rows(*vargs,
+                                                              thresh)),
+        plain_ms=cuda_ms(torch, lambda: kernels.verify_rows_ref(*vargs,
+                                                                thresh)),
+        accepted=int(want[0].sum()))
+    del vargs, want, got
     # ---- masked Hamming, row-major: (B, M, W) frames, (B, M, W+1) rows
     fr, rw, lo, hi = kernel_inputs(torch, (B, M), W, SEED)
     lw = torch.full((B, M, 1), 100, dtype=torch.int32, device="cuda")
@@ -380,6 +413,8 @@ KERNEL_NAMES = ("verify_rows", "masked_hamming_rows", "masked_hamming")
 def engine_line(stats: dict) -> str:
     """One engine run's numbers from engine.LAST_RUN_STATS."""
     return (f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
+            f"program cache {stats['program_cache']}, "
+            f"{stats['eager_rounds']} rounds called; "
             f"{stats['graphed_flushes']} of {stats['flushes']} flushes "
             f"replayed as CUDA graphs, {stats['round_replays']} round "
             f"replays; capture+instantiate {stats['capture_s']} s; graph "
@@ -387,23 +422,32 @@ def engine_line(stats: dict) -> str:
             f"{stats['queue_compactions']} queue compactions; "
             f"{stats['ms_per_round']} ms a round ({stats['warmup_s']} s to "
             f"the capture, {stats['ms_per_graphed_round']} ms a replayed "
-            f"round after it); engine {stats['flush_wall_s']} s")
+            f"round after it); engine {stats['flush_wall_s']} s; cached "
+            f"program {stats['cached_program_bytes']} bytes")
 
 
 def need_graphs(what: str, stats: dict, replays: int = 1,
                 compactions: int = 0) -> None:
-    """Every flush of an engine run on the card but the first (the
-    warm-up) must have been a replayed graph, the round replayed at least
-    ``replays`` times, and the seed queue compacted at least
-    ``compactions`` times."""
-    if (stats["flushes"] < 2
-            or stats["graphed_flushes"] != stats["flushes"] - 1
+    """The flush runner's schedule of an engine run on the card: on a
+    program-cache miss one round called, then captured (with the
+    compaction) and replayed, on a hit no round called and nothing
+    captured; every other round and every compaction but a miss's first
+    replayed; the round replayed at least ``replays`` times and the seed
+    queue compacted at least ``compactions`` times."""
+    miss = stats["program_cache"] == "miss"
+    called = 1 if miss else 0
+    if (stats["flushes"] < 2 or stats["eager_rounds"] != called
+            or stats["round_replays"] != stats["rounds_run"] - called
+            or stats["graphed_flushes"] != stats["flushes"] - called
+            or (stats["capture_s"] is not None) != miss
             or stats["round_replays"] < replays
             or stats["queue_compactions"] < compactions):
-        raise AssertionError(f"{what}: want every flush but the first "
-                             f"replayed as CUDA graphs, at least {replays} "
-                             f"round replays and {compactions} queue "
-                             f"compactions; engine {stats}")
+        raise AssertionError(
+            f"{what}: want {called} round called, every other round and "
+            f"{stats['flushes'] - called} compactions replayed as CUDA "
+            f"graphs, a capture only on a cache miss, at least {replays} "
+            f"round replays and {compactions} queue compactions; engine "
+            f"{stats}")
 
 
 def zero_counts(kernels) -> None:
@@ -483,6 +527,13 @@ def kernel_phases():
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} "
             f"bytes at {HBM_BYTES_PER_S:.3g} B/s, {r['ops']} operations "
             f"at {ALU_OPS_PER_S:.3g}/s) on {card}")
+    r = kres["verify_rows"]["at_10M_reads"]
+    log(f"[kernel] verify_rows ({r['shape']}): equal to its plain version; "
+        f"device {r['ms']:.5f} ms a launch, wrapper enqueue "
+        f"{r['enqueue_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms; bound "
+        f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} bytes, "
+        f"{r['ops']} operations); accepted {r['accepted']} of {8192 * 16} "
+        f"slots; on {card}")
     log(f"[kernel] an empty kernel timed the same way: "
         f"{kernels.launch_floor_device_ms():.5f} ms a launch on {card}")
     log(f"[kernel] verify_rows accepted "
@@ -503,7 +554,7 @@ def main() -> int:
     from spring_tpu_torch.reorder import engine
     from spring_tpu_torch.utils import synth
 
-    # launches on the main paths, phases 5-9: the fused verify (the
+    # launches on the main paths, phases 5-10: the fused verify (the
     # single-device round), masked_hamming_rows (the distributed round),
     # and the word-major masked_hamming (on no path)
     total = dict.fromkeys(KERNEL_NAMES, 0)
@@ -526,10 +577,13 @@ def main() -> int:
             total[name] += n
         return secs, counts[path], dict(engine.LAST_RUN_STATS)
 
-    def need_launches(what, n, stats):
-        if n <= 0 or n < stats["rounds"]:
+    def need_launches(what, n, stats, engines=1):
+        """One launch a round run; a compress of several engines (super-
+        shards) more than the last one's rounds run."""
+        rr = stats["rounds_run"]
+        if not (n == rr if engines == 1 else n > rr):
             raise AssertionError(f"{what} launched the kernel {n} times "
-                                 f"in {stats['rounds']} rounds")
+                                 f"in {stats['rounds_run']} rounds run")
         need_graphs(what, stats)
 
     opts = api.CompressOptions(num_threads=THREADS, verbose=False)
@@ -576,10 +630,16 @@ def main() -> int:
             f"archive {os.path.getsize(arc)} bytes; peak device memory "
             f"{peak} bytes")
         log(f"[main] stages_s {json.dumps(stages)}")
+        log(f"[main] device peak at each stage's end "
+            f"{json.dumps(short_mode.LAST_STAGE_PEAK_BYTES)}")
         log(f"[main] engine {json.dumps(stats)}")
         log(f"[main] engine: {engine_line(stats)}; verify_rows launches "
             f"{launches} on {card}")
         need_launches("the main path", launches, stats)
+        if stats["program_cache"] != "miss" or stats["eager_rounds"] != 1:
+            raise AssertionError("the main path: want a program-cache miss "
+                                 "(phase 4's shape differs) with one round "
+                                 f"called; engine {stats}")
         single = dict(archive=os.path.getsize(arc),
                       engine_s=stats["flush_wall_s"])
         for f in (arc, out):        # phase 8 compresses fq again
@@ -660,7 +720,8 @@ def main() -> int:
                 params.MAX_NUM_READS_SHORT = full_cap
             same_bytes(a_gpu, a_cpu, f"{name} archive, card against CPU")
             if not fields.get("long_mode"):
-                need_launches(f"the {name} path", launches, stats)
+                need_launches(f"the {name} path", launches, stats,
+                              engines=N_SMALL // cap if cap else 1)
             if cap:
                 with ArchiveReader(a_gpu) as r:
                     if len(r.params.shard_reads) != N_SMALL // cap:
@@ -791,10 +852,55 @@ def main() -> int:
             secs, counts, peak, stats = res[0]
             dist_report("dist-n", n, secs, counts["masked_hamming_rows"],
                         peak, stats)
+        os.remove(fq)
+
+        # ---- phase 10: 2M reads, compressed twice in this process: the
+        # first call stages its rows and prewarms the dictionary build,
+        # the second finds its flush program in the cache
+        fq = os.path.join(tmp, "large.fastq")
+        t = time.time()
+        synth.make_se(fq, N_LARGE, read_len=100, genome_size=GENOME_LARGE,
+                      seed=SEED)
+        log(f"[data] {N_LARGE} SE reads x 100 bp, genome {GENOME_LARGE}, "
+            f"seed {SEED}: {os.path.getsize(fq)} bytes in "
+            f"{time.time() - t:.1f} s")
+        calls = []
+        for k in (1, 2):
+            arc = os.path.join(tmp, f"large{k}.stpu")
+            torch.cuda.reset_peak_memory_stats()
+            secs, launches, stats = on_card([fq], arc, opts)
+            peak = torch.cuda.max_memory_allocated()
+            need_launches(f"large call {k}", launches, stats)
+            log(f"[large] call {k}: device peak at each stage's end "
+                f"{json.dumps(short_mode.LAST_STAGE_PEAK_BYTES)}")
+            calls.append((arc, secs, stats))
+            log(f"[large] call {k}: compress {secs:.3f} s = "
+                f"{N_LARGE / secs:.1f} reads/s; rows staged "
+                f"{stats['staged_rows']}; dictionary prewarm "
+                f"{stats.get('dict_prewarm_s')} s; engine "
+                f"{stats['flush_wall_s']} s; cached program "
+                f"{stats['cached_program_bytes']} bytes; peak device memory "
+                f"{peak} bytes; unmatched fraction "
+                f"{stats['unmatched_frac']}; verify_rows launches {launches}; "
+                f"engine: {engine_line(stats)}; on {card}")
+        (a1, _, s1), (a2, _, s2) = calls
+        if not (s1["staged_rows"] and s1.get("dict_prewarm_s") is not None
+                and s1["program_cache"] == "miss"):
+            raise AssertionError(f"large call 1: want the staged rows, the "
+                                 f"prewarm and a cache miss; engine {s1}")
+        if (s2["program_cache"] != "hit" or s2["eager_rounds"]
+                or s2["capture_s"] is not None):
+            raise AssertionError(f"large call 2: want a cache hit, no round "
+                                 f"called and no capture; engine {s2}")
+        same_bytes(a1, a2, "the two 2M-read archives")
+        api.decompress(a2, [out], num_threads=THREADS, verbose=False)
+        same_bytes(fq, out, "2M-read round trip")
+        log(f"[large] the two archives byte-equal ({os.path.getsize(a2)} "
+            f"bytes); round trip byte-exact")
 
     def entry(name, launches):
         r = kres[name]
-        return {
+        out = {
             "name": name, "route": "cuda",
             "source": "spring_tpu_torch/csrc/masked_hamming.cu",
             "replaces": "spring_tpu/ops/pallas_kernels.py:59",
@@ -802,8 +908,13 @@ def main() -> int:
             "ms": r["ms"], "enqueue_ms": r["enqueue_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None}
+        if "at_10M_reads" in r:
+            out["at_10M_reads"] = {k: r["at_10M_reads"][k] for k in (
+                "shape", "ms", "enqueue_ms", "plain_ms", "bound_ms",
+                "bound_by")}
+        return out
 
-    # the fused entry carries the single-device round (phases 5-7) and
+    # the fused entry carries the single-device round (phases 5-7, 10) and
     # masked_hamming_rows the distributed round (phases 8-9); the
     # word-major entry (the Pallas kernel's own signature) is checked and
     # timed in phase 3 and launched by no phase after it

@@ -17,8 +17,10 @@ from dataclasses import dataclass
 
 from . import params as P
 from .io.container import ArchiveReader, ArchiveWriter
+from .ops.graphs import clear_program_cache
 
-__all__ = ["CompressOptions", "compress", "decompress"]
+__all__ = ["CompressOptions", "clear_program_cache", "compress",
+           "decompress"]
 
 
 @dataclass

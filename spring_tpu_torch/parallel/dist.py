@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from .. import params as P
-from ..ops import bits, kernels
+from ..ops import bits, graphs, kernels
 from ..reorder import dictionary as dct
 from ..reorder import engine as eng
 from . import multihost as mh
@@ -178,7 +178,10 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                    SC: int, accept_slots: int, starts: tuple, thresh: int,
                    capf: float) -> dict:
     """The build, flush and flush-runner functions of one rank for one
-    static shape signature, and the sizes that follow from it."""
+    static shape signature, and the sizes that follow from it. The
+    collectives go through ``ctx["world"]``: an engine that takes this
+    program's runner from the cache puts its own World (of the same
+    group) there."""
     n = world.size
     if n & (n - 1):
         raise ValueError(f"world size {n} is not a power of two")
@@ -216,9 +219,10 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
     S = dct.table_buckets(max(D * Np // n, 64))
     salts = np.array(_SALTS[:D], np.uint32).view(np.int32)
     salt_on = {}        # device -> the salts as a tensor there
+    ctx = {"world": world}
 
     def a2a(x):
-        return mh.all_to_all(world, x)
+        return mh.all_to_all(ctx["world"], x)
 
     # ---------------- sharded dictionary build ----------------
 
@@ -409,7 +413,7 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
         prop_rid = torch.cat([torch.where(keep_f, rid_f, _BIG).reshape(-1),
                               torch.where(seed_try, seed_rid, _BIG)])
         Ppd = prop_rid.shape[0]
-        props = mh.all_gather(world, prop_rid)
+        props = mh.all_gather(ctx["world"], prop_rid)
         cls = torch.cat([torch.zeros(Bl * M, dtype=torch.int64, device=dev),
                          torch.ones(Bl, dtype=torch.int64, device=dev)]
                         ).repeat(n)
@@ -507,21 +511,27 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
         """A FlushRunner over these tensors, as the single engine's
         (reorder/engine.py): they are its static buffers, the state's
         tensors change in place, and the caller changes ``seed_slice``,
-        ``state["n_queue"]`` and ``state["queue_pos"]`` in place only;
-        maxshift may be an int. A flush runs FLUSH_ROUNDS rounds, then
-        compacts each walker's stacked emissions once by a stable sort
-        that puts empty slots last, and returns (buf (Bl, CAP, 2), stats
-        (1, 4)) with stats = (claimed bits, queue_pos, active walkers,
-        emitted rows). On CUDA the round's seven collectives are captured
-        with it."""
+        ``state["n_queue"]`` and ``state["queue_pos"]`` in place only
+        (through the runner's ``state`` and ``inputs``, which a later
+        engine binds anew); maxshift may be an int. The runner's
+        ``world_ctx`` is this program's ``ctx``. A flush runs FLUSH_ROUNDS
+        rounds, then compacts each walker's stacked emissions once by a
+        stable sort that puts empty slots last, and returns (buf (Bl,
+        CAP, 2), stats (1, 4)) with stats = (claimed bits, queue_pos,
+        active walkers, emitted rows). On CUDA the round's seven
+        collectives are captured with it."""
         dev = state["counts"].device
-        maxshift = torch.as_tensor(maxshift, dtype=torch.int32, device=dev)
+        inputs = dict(btab=btab, pairs=pairs, rows_local=rows_local,
+                      seed_slice=seed_slice,
+                      maxshift=torch.as_tensor(maxshift, dtype=torch.int32,
+                                               device=dev))
 
-        def step(room):
-            return round_fn(state, btab, pairs, rows_local, seed_slice,
-                            maxshift, room)
+        def step(state, inp, room):
+            return round_fn(state, inp["btab"], inp["pairs"],
+                            inp["rows_local"], inp["seed_slice"],
+                            inp["maxshift"], room)
 
-        def compact(em, cnt):
+        def compact(state, em, cnt):
             empty = (em[:, :, 0] < 0).to(torch.int32)
             _, perm = torch.sort(empty, dim=1, stable=True)
             buf = torch.stack([torch.gather(em[:, :, 0], 1, perm)[:, :CAP],
@@ -536,7 +546,9 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                 cnt.sum()]).to(torch.int32)[None, :]
             return buf, stats
 
-        return eng.FlushRunner(state, step, compact, S_EMIT, CAP)
+        runner = eng.FlushRunner(state, inputs, step, compact, S_EMIT, CAP)
+        runner.world_ctx = ctx
+        return runner
 
     def flush_fn(state, btab, pairs, rows_local, seed_slice, maxshift):
         """One flush on a new runner over these tensors (see
@@ -575,11 +587,18 @@ class DistReorderEngine:
         self.B = int(min(cfg.num_walkers,
                          max(8 * n, self.Np // 256)) // n * n)
         self.windows = dct.default_windows(cfg.max_readlen)
+        starts = tuple(w.start for w in self.windows)
         self._prog = _dist_programs(
             self.world, self.Np, self.W, self.B, cfg.candidates,
-            cfg.shift_chunk, cfg.accept_slots,
-            tuple(w.start for w in self.windows), cfg.thresh,
+            cfg.shift_chunk, cfg.accept_slots, starts, cfg.thresh,
             cfg.capacity_factor)
+        # the runner's key in the program cache: the world (as JAX keys
+        # its programs on the mesh) and every static shape
+        wd = self.world
+        self._program_key = (
+            "dist", wd.group, wd.rank, wd.size, str(wd.device), self.Np,
+            self.W, self.B, cfg.candidates, cfg.shift_chunk,
+            cfg.accept_slots, starts, cfg.thresh, cfg.capacity_factor)
         # padded rows + length word; padding rows carry the claimed bit
         # (the only claim bit rows ever hold: live claim state is the
         # replicated bitmap, rows are read-only)
@@ -653,6 +672,8 @@ class DistReorderEngine:
         w = self.world
         n = self.n
         collectives0, collective_s0 = w.collectives, w.collective_s
+        # a miss frees the device's old program before this run builds
+        runner = graphs.cached_program(w.device, w.rank, self._program_key)
         rows_dev = mh.put_sharded(w, self.packed)
         btab, _, _, pairs, dropped = prog["build"](rows_dev)
         nd = int(mh.to_host(w, dropped).sum())
@@ -669,8 +690,23 @@ class DistReorderEngine:
         state["n_queue"] = mh.put_sharded(w, nq_arr)
         # the seed queue lives in static buffers: compaction rewrites them
         seed_dev = mh.put_sharded(w, qslice)
-        runner = prog["runner"](state, btab, pairs, rows_dev, seed_dev,
-                                self.cfg.max_shift)
+        hit = runner is not None
+        if hit:
+            runner.bind(state, dict(btab=btab, pairs=pairs,
+                                    rows_local=rows_dev, seed_slice=seed_dev,
+                                    maxshift=self.cfg.max_shift))
+            # the program's collectives and their counts follow this world
+            old = runner.world_ctx["world"]
+            if old is not w:
+                runner.recount(old, w)
+                runner.world_ctx["world"] = w
+        else:
+            runner = prog["runner"](state, btab, pairs, rows_dev, seed_dev,
+                                    self.cfg.max_shift)
+        # from here on the run reads and changes the runner's buffers
+        del state, btab, pairs, rows_dev, seed_dev
+        state = runner.state
+        seed_dev = runner.inputs["seed_slice"]
         chunks = []
         rounds = compactions = 0
         round_collectives = 0
@@ -725,6 +761,8 @@ class DistReorderEngine:
         chunks.append(harvest(inflight[0]))
         out = eng._emissions_from_chunks(chunks)
         dt = time.time() - t_start
+        if not hit:     # a run that raised leaves no program behind
+            graphs.cache_program(w.device, w.rank, self._program_key, runner)
         rstats = runner.stats()
         eng.LAST_RUN_STATS.update(
             rounds=rounds, flush_wall_s=round(dt, 3),
@@ -740,7 +778,9 @@ class DistReorderEngine:
                                if not rstats["graphed_flushes"] else None),
             collectives_per_round=round(
                 round_collectives / (runner.flushes * eng.FLUSH_ROUNDS), 3),
-            **rstats)
+            **rstats, program_cache="hit" if hit else "miss",
+            eager_rounds=runner.eager_rounds,
+            cached_program_bytes=graphs.cached_program_bytes(w.device))
         return out
 
 

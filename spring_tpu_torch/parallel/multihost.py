@@ -123,7 +123,9 @@ def maybe_initialize(device="cuda") -> World:
 
 
 def shutdown() -> None:
-    """Destroy the process group, if one is up."""
+    """Free the cached flush programs (their graphs hold the group's
+    collectives) and destroy the process group, if one is up."""
+    graphs.clear_program_cache()
     if tdist.is_available() and tdist.is_initialized():
         tdist.destroy_process_group()
 

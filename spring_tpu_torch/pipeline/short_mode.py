@@ -26,6 +26,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .. import params as P
 from ..codecs import bsc, idcodec, qv
@@ -36,9 +37,54 @@ from ..encode import streams as st
 from ..io import fastq, fastq_native, packing
 from ..io.container import ArchiveReader, ArchiveWriter
 from ..io.ids import check_id_pattern, find_id_pattern, modify_id
+from ..reorder import dictionary as dct
 from ..reorder import engine as eng
 from . import qualstream
 from . import quality as qual_mod
+
+# inputs of this many reads and up (reads of 32 bases or more, single
+# engine) prewarm the dictionary build while the host parses and, from one
+# input file, stage their packed rows on the device segment by segment
+# (spring_tpu's conditions, pipeline/short_mode.py)
+STAGER_MIN_READS = 2_000_000
+
+
+def _prewarm_dict_build(Np: int, W: int, maxlen: int, device) -> None:
+    """The first dictionary build on zero rows of the engine's padded
+    shape: on the card it makes the CUDA context, the allocator's first
+    reservation and the build's kernel loads."""
+    dev = torch.device(device)
+    ws = dct.default_windows(maxlen)
+    if not ws:
+        return
+    rows = torch.zeros((Np, W + 1), dtype=torch.int32, device=dev)
+    dct._build_hash_dict_dev(rows, 0, ws[0].start, dct.table_buckets(Np))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _Prewarm(threading.Thread):
+    """_prewarm_dict_build in a thread of its own. Its exception is kept:
+    ``check()`` joins the thread and raises it."""
+
+    def __init__(self, *args):
+        super().__init__(daemon=True)
+        self._args = args
+        self.error = None
+        self.seconds = None
+
+    def run(self) -> None:
+        t = time.perf_counter()
+        try:
+            _prewarm_dict_build(*self._args)
+        except Exception as e:     # raised by check() in the caller
+            self.error = e
+        self.seconds = round(time.perf_counter() - t, 3)
+
+    def check(self) -> None:
+        self.join()
+        if self.error is not None:
+            raise self.error
 
 
 def _gather_ids(idbuf: np.ndarray, idoffs: np.ndarray, idlens: np.ndarray,
@@ -67,6 +113,10 @@ def check_quality_lengths(blk, path: str) -> None:
 # stage wall seconds of the most recent compress_short run (one compress
 # call per process: concurrent calls would interleave these stats)
 LAST_STAGE_SECONDS: dict[str, float] = {}
+# on a card, the device's peak allocated bytes so far
+# (torch.cuda.max_memory_allocated) at the end of each stage of that run:
+# the stage where it rises set the peak
+LAST_STAGE_PEAK_BYTES: dict[str, int] = {}
 
 
 def compress_short(files: list[str], writer: ArchiveWriter,
@@ -79,13 +129,18 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     primary = world is None or world.rank == 0
     if _scanned is None:    # a shard adds its stages to the outer call's
         LAST_STAGE_SECONDS.clear()
+        LAST_STAGE_PEAK_BYTES.clear()
     _t = time.time()
+    card = torch.device(device).type == "cuda"
 
     def mark(stage):
         nonlocal _t
         now = time.time()
         LAST_STAGE_SECONDS[stage] = round(
             LAST_STAGE_SECONDS.get(stage, 0.0) + (now - _t), 3)
+        if card:
+            LAST_STAGE_PEAK_BYTES[stage] = torch.cuda.max_memory_allocated(
+                device)
         _t = now
 
     block = cp.num_reads_per_block
@@ -126,6 +181,11 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     # one index space: file 1 then file 2, rows padded to the common maxlen
     ml = max(maxlen, 1)
     W = -(-ml // 16)
+    big = n >= STAGER_MIN_READS and maxlen >= 32 and world is None
+    prewarm = None
+    if big:
+        prewarm = _Prewarm(eng.padded_n(n), W, maxlen, device)
+        prewarm.start()
     n_pad = max(1 << max(n - 1, 1).bit_length(), 64)
     packed_buf = np.empty((n_pad, W), np.uint32)
     packed_all = packed_buf[:n]
@@ -166,28 +226,42 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         spool = qualstream.QualSpool(
             n, ml, dir=os.path.dirname(files[0]) or ".")
 
+    # the packed rows go to the device while the next segment parses
+    # (one input file: a second file's offsets would break the tail pad)
+    stager = None
+    if big and len(files) == 1:
+        stager = eng.DeviceRowStager(n, W, fastq_native._SEG_RECORDS,
+                                     device)
+
     exc_parts = []
     off = 0
     ido = 0
-    for buf, info, f in zip(bufs, infos, files):
-        if info.n:
-            if spool is not None:
-                sink = (lambda o: lambda r0, rows:
-                        spool.write(o + r0, rows))(off)
-            else:
-                sink = None
-            exc = fastq_native.parse_packed_into(
-                buf, f, info, ml, packed_all[off:off + info.n],
-                lengths[off:off + info.n], None,
-                idbuf[ido:ido + info.idbytes],
-                idlens[off:off + info.n],
-                fasta=cp.fasta_input, num_threads=num_threads,
-                qual_sink=sink)
-            if len(exc):
-                exc[:, 0] += off
-                exc_parts.append(exc)
-        off += info.n
-        ido += info.idbytes
+    try:
+        for buf, info, f in zip(bufs, infos, files):
+            if info.n:
+                if spool is not None:
+                    sink = (lambda o: lambda r0, rows:
+                            spool.write(o + r0, rows))(off)
+                else:
+                    sink = None
+                exc = fastq_native.parse_packed_into(
+                    buf, f, info, ml, packed_all[off:off + info.n],
+                    lengths[off:off + info.n], None,
+                    idbuf[ido:ido + info.idbytes],
+                    idlens[off:off + info.n],
+                    fasta=cp.fasta_input, num_threads=num_threads,
+                    qual_sink=sink,
+                    row_sink=stager.feed if stager is not None else None)
+                if len(exc):
+                    exc[:, 0] += off
+                    exc_parts.append(exc)
+            off += info.n
+            ido += info.idbytes
+    finally:
+        if prewarm is not None:
+            prewarm.join()
+    if prewarm is not None:
+        prewarm.check()     # the prewarm's failure is this call's
     del bufs, infos
     overlay = cons.NOverlay.from_pairs(
         np.concatenate(exc_parts) if exc_parts else
@@ -319,6 +393,8 @@ def compress_short(files: list[str], writer: ArchiveWriter,
                   seq_codes[None, :], np.array([len(seq_codes)])))
 
     use_engine = len(clean_rids) > 0 and maxlen >= 32
+    if stager is not None and not use_engine:
+        stager.release()        # no engine reads the staged rows
     if use_engine:
         c_len = lengths[clean_rids]
         if world is not None:
@@ -330,9 +406,17 @@ def compress_short(files: list[str], writer: ArchiveWriter,
             # the clean-row gather happens on the device (engine `select`)
             engine = eng.ReorderEngine(
                 packed_buf, lengths, eng.ReorderConfig(max_readlen=maxlen),
-                select=clean_rids, device=device)
+                select=clean_rids, device=device,
+                rows_dev=stager.rows() if stager is not None else None)
+        if stager is not None:
+            # the engine holds the table now; run() drops it once the
+            # padded row table is assembled
+            stager.release()
+            stager = None
         mark("dict_build")
         emissions = engine.run(progress=_progress if primary else None)
+        if prewarm is not None:
+            eng.LAST_RUN_STATS["dict_prewarm_s"] = prewarm.seconds
     if not primary:
         pool.shutdown()
         return

@@ -11,9 +11,13 @@ analog: the greedy consensus-following walk of src/reorder.h:432-616.
 The round is a plain function over tensors on the engine's device. A
 flush (FLUSH_ROUNDS rounds, then a per-walker compaction of the
 emissions) runs on a ``FlushRunner`` over static buffers, the counterpart
-of the JAX program's jitted lax.scan: on CUDA one round and the
-compaction are each captured once into a CUDA graph and replayed, flush
-after flush; on the CPU the same steps are called on the same buffers.
+of the JAX program's jitted lax.scan: on CUDA one round is called, then
+the round and the compaction are each captured once into a CUDA graph and
+replayed, flush after flush; on the CPU the same steps are called on the
+same buffers. The runner stays in the process's program cache
+(ops/graphs.py, the counterpart of the JAX module's lru_cache): the next
+engine of the same static shapes binds its inputs into the same buffers
+and replays the same graphs.
 Packed words are int32 bit patterns (ops/bits.py). Every stage is
 integer-only and deterministic, so emissions equal the JAX engine's
 exactly.
@@ -402,22 +406,30 @@ def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
         """A FlushRunner over these tensors. They are its static buffers:
         the state's tensors change in place flush by flush (the JAX flush
         donates its state), and the caller changes ``seed_order`` or the
-        0-dim ``n_real`` and ``state["queue_pos"]`` in place only.
-        n_real and maxshift may be given as ints. A flush returns (dense,
-        cnt, stats): each walker's emissions of FLUSH_ROUNDS rounds,
-        compacted by a stable sort that puts empty slots last and
+        0-dim ``n_real`` and ``state["queue_pos"]`` in place only (through
+        the runner's ``state`` and ``inputs``, which a later engine binds
+        anew). n_real and maxshift may be given as ints. A flush returns
+        (dense, cnt, stats): each walker's emissions of FLUSH_ROUNDS
+        rounds, compacted by a stable sort that puts empty slots last and
         scattered into a dense walker-major prefix; stats = (claimed bits,
         queue_pos, active walkers, emitted rows)."""
-        B = state["counts"].shape[0]
         dev = state["counts"].device
-        n_real = torch.as_tensor(n_real, dtype=torch.int32, device=dev)
-        maxshift = torch.as_tensor(maxshift, dtype=torch.int32, device=dev)
+        inputs = dict(
+            lengths=lengths, dkeys=dkeys, pairs_all=pairs_all,
+            seed_order=seed_order,
+            n_real=torch.as_tensor(n_real, dtype=torch.int32, device=dev),
+            maxshift=torch.as_tensor(maxshift, dtype=torch.int32,
+                                     device=dev),
+            rows_tab=rows_tab)
 
-        def step(room):
-            return round_fn(state, lengths, dkeys, pairs_all, seed_order,
-                            n_real, maxshift, rows_tab, room)
+        def step(state, inp, room):
+            return round_fn(state, inp["lengths"], inp["dkeys"],
+                            inp["pairs_all"], inp["seed_order"],
+                            inp["n_real"], inp["maxshift"], inp["rows_tab"],
+                            room)
 
-        def compact(em, cnt):
+        def compact(state, em, cnt):
+            B = cnt.shape[0]
             empty = (em[:, :, 0] < 0).to(torch.int32)
             _, perm = torch.sort(empty, dim=1, stable=True)
             w0 = torch.gather(em[:, :, 0], 1, perm)[:, :CAP]
@@ -440,7 +452,7 @@ def _flush_program(Np: int, C: int, SC: int, accept_slots: int,
                 cnt.sum()]).to(torch.int32)
             return dense, cnt.clone(), stats
 
-        return FlushRunner(state, step, compact, S, CAP)
+        return FlushRunner(state, inputs, step, compact, S, CAP)
 
     def flush_fn(state, lengths, dkeys, pairs_all, seed_order, n_real,
                  maxshift, rows_tab):
@@ -457,11 +469,12 @@ class FlushRunner:
     """Runs flushes over static buffers: the counterpart of the JAX
     program's jitted lax.scan.
 
-    ``step(room)`` runs one round on ``state`` (read only) and returns
-    (new state, emissions (B, slots, 2)); ``room`` is False for a walker
-    whose flush buffer of ``cap`` slots has no room for another round.
-    ``compact(em, cnt)`` turns the flush's stacked emissions (B,
-    FLUSH_ROUNDS * slots, 2) and the per-walker counts of filled slots
+    ``state`` and ``inputs`` are dicts of tensors, the runner's buffers.
+    ``step(state, inputs, room)`` runs one round (reading ``state``) and
+    returns (new state, emissions (B, slots, 2)); ``room`` is False for a
+    walker whose flush buffer of ``cap`` slots has no room for another
+    round. ``compact(state, em, cnt)`` turns the flush's stacked emissions
+    (B, FLUSH_ROUNDS * slots, 2) and the per-walker counts of filled slots
     into the flush's outputs; it must not return ``cnt`` itself (it is
     zeroed for the next flush). A round writes the new state into
     ``state``'s tensors and its emissions into row r of a stack, r a
@@ -470,33 +483,72 @@ class FlushRunner:
     the compaction, and returns clones of the outputs, so that they
     outlive the flushes after it.
 
-    On the CPU the steps are called. On CUDA the first flush calls them
-    too, as the warm-up that capture needs (kernel loads, lazy inits, a
-    process group's communicator); its results count. Then one round and
-    the compaction are each captured once into a CUDA graph on the
-    state's device (ops/graphs.py), and every later flush replays them:
-    one graph launch a round. A capture that fails raises; nothing goes
-    back to the called steps on the card."""
+    On the CPU the steps are called. On CUDA the runner's first flush
+    calls one round (kernel loads, lazy inits, a process group's
+    communicator), captures the round into a CUDA graph on the state's
+    device (ops/graphs.py) and replays it for the flush's other rounds;
+    it calls the compaction, as the warm-up of its capture, and captures
+    it too. Every later flush replays both: one graph launch a round. A
+    capture that fails raises; nothing goes back to the called steps on
+    the card. The runner outlives its engine in the program cache
+    (ops/graphs.py): ``bind`` copies the next engine's start state and
+    inputs into the buffers, and that engine's flushes replay the graphs
+    from its first flush on."""
 
-    def __init__(self, state: dict, step, compact, slots: int, cap: int):
+    def __init__(self, state: dict, inputs: dict, step, compact,
+                 slots: int, cap: int):
         B = state["counts"].shape[0]
         self.device = dev = state["counts"].device
-        self.state = state
+        self.state, self.inputs = state, inputs
         self._step, self._compact = step, compact
         self._room = cap - slots
         self._cnt = torch.zeros(B, dtype=torch.int32, device=dev)
         self._ys = torch.full((B, FLUSH_ROUNDS, slots, 2), -1,
                               dtype=torch.int32, device=dev)
         self._r = torch.zeros(1, dtype=torch.int64, device=dev)
-        self._graphs = None
-        self.flushes = 0
-        self.capture_s = 0.0
+        self._graphs = None             # (round graph, compaction graph)
         self.pool_bytes = 0
-        # host clock at the first flush and at the capture's start and end
-        self._t_first = self._t_capture = self._t_graphed = 0.0
+        self._new_run()
+
+    def _new_run(self) -> None:
+        """Zero the counts of one engine run."""
+        self.flushes = self.eager_rounds = 0
+        self.round_replays = self.graphed_flushes = 0
+        self.capture_s = None
+        # host clock at the first flush, at the first capture's start, and
+        # when the graphs were at hand (the capture's end, or the first
+        # flush of a run that found them captured)
+        self._t_first = self._t_capture = self._t_graphed = None
+
+    def bind(self, state: dict, inputs: dict) -> None:
+        """Start a new run on these buffers: copy ``state`` and ``inputs``
+        (same keys, and each tensor of its buffer's shape and dtype; an
+        int fills a 0-dim buffer) into them. The caller then reads and
+        changes ``self.state`` and ``self.inputs``, not what it passed."""
+        with torch.profiler.record_function("stpu::bind"):
+            for bufs, new in ((self.state, state), (self.inputs, inputs)):
+                if bufs.keys() != new.keys():
+                    raise ValueError(f"bind: keys {sorted(new)} against "
+                                     f"the runner's {sorted(bufs)}")
+                for k, buf in bufs.items():
+                    v = new[k]
+                    if not isinstance(v, torch.Tensor):
+                        buf.fill_(v)
+                    elif v.shape != buf.shape or v.dtype != buf.dtype:
+                        raise ValueError(
+                            f"bind: {k} is {v.dtype}{tuple(v.shape)}, the "
+                            f"runner's {buf.dtype}{tuple(buf.shape)}")
+                    else:
+                        buf.copy_(v)
+            # every flush ends with the compaction, which zeroes both; a
+            # run that raised part-way leaves them set
+            self._cnt.zero_()
+            self._r.zero_()
+        self._new_run()
 
     def _round(self) -> None:
-        new, emit = self._step(self._cnt < self._room)
+        new, emit = self._step(self.state, self.inputs,
+                               self._cnt < self._room)
         for k, v in new.items():
             self.state[k].copy_(v)
         self._cnt.add_((emit[:, :, 0] >= 0).sum(dim=1).to(torch.int32))
@@ -505,67 +557,207 @@ class FlushRunner:
 
     def _epilogue(self) -> tuple:
         B = self._ys.shape[0]
-        out = self._compact(self._ys.reshape(B, -1, 2), self._cnt)
+        out = self._compact(self.state, self._ys.reshape(B, -1, 2),
+                            self._cnt)
         self._cnt.zero_()
         self._r.zero_()
         return out
 
+    def _replay_round(self) -> None:
+        self._graphs[0].replay()
+        self.round_replays += 1
+
     def flush(self) -> tuple:
         if not self.flushes:
             self._t_first = time.perf_counter()
-        if self.device.type == "cuda" and self.flushes:
-            if self._graphs is None:
-                self._capture()
-            rounds, epi = self._graphs
-            for _ in range(FLUSH_ROUNDS):
-                rounds.replay()
-            epi.replay()
-            outs = epi.outputs
-        else:
+            if self._graphs is not None:
+                self._t_graphed = self._t_first
+        if not graphs.enabled(self.device):
             for _ in range(FLUSH_ROUNDS):
                 self._round()
+            self.eager_rounds += FLUSH_ROUNDS
             outs = self._epilogue()
+        elif self._graphs is None:
+            # a new program: one round called, then captured (a capture
+            # records and runs nothing) and replayed for the other rounds;
+            # the compaction is called, then captured
+            self._round()
+            self.eager_rounds += 1
+            self._capture()
+            for _ in range(FLUSH_ROUNDS - 1):
+                self._replay_round()
+            outs = self._epilogue()
+            self._capture()
+        else:
+            for _ in range(FLUSH_ROUNDS):
+                self._replay_round()
+            epi = self._graphs[1]
+            epi.replay()
+            self.graphed_flushes += 1
+            outs = epi.outputs
         self.flushes += 1
         return tuple(o.clone() for o in outs)
 
     def _capture(self) -> None:
-        """Capture the round and the epilogue into two graphs that share
-        one memory pool; capture_s is the host time of both captures,
-        instantiation included, and pool_bytes what the device's reserved
-        memory grew by."""
+        """Capture the round (the first call) or the compaction (the
+        second, into the round's memory pool). capture_s adds up the host
+        time of both, instantiation included, and pool_bytes what the
+        device's reserved memory grew by."""
         dev = self.device
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        self._t_capture = time.perf_counter()
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev) if cuda else 0
+        t = time.perf_counter()
+        if self._t_capture is None:
+            self._t_capture = t
         with torch.profiler.record_function("stpu::capture"):
-            rounds = graphs.Graph(self._round, dev)
-            epi = graphs.Graph(self._epilogue, dev, pool=rounds.pool)
-        torch.cuda.synchronize(dev)
+            if self._graphs is None:
+                self._graphs = (graphs.Graph(self._round, dev),)
+            else:
+                rounds = self._graphs[0]
+                self._graphs = (rounds, graphs.Graph(
+                    self._epilogue, dev, pool=rounds.pool))
+        if cuda:
+            torch.cuda.synchronize(dev)
+            self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
         self._t_graphed = time.perf_counter()
-        self.capture_s = self._t_graphed - self._t_capture
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self._graphs = (rounds, epi)
+        self.capture_s = (self.capture_s or 0.0) + self._t_graphed - t
+
+    def recount(self, old, new) -> None:
+        """Counts the graphs add to ``old`` go to ``new`` from now on."""
+        for g in self._graphs or ():
+            g.recount(old, new)
+
+    def nbytes(self) -> int:
+        """Bytes of the buffers and the graph pool."""
+        seen = {}
+        for t in (*self.state.values(), *self.inputs.values(), self._cnt,
+                  self._ys, self._r):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        return sum(seen.values()) + self.pool_bytes
+
+    def free(self) -> None:
+        """Drop the graphs and the buffers; the runner is unusable after."""
+        for g in self._graphs or ():
+            g.reset()
+        self._graphs = None
+        self.state, self.inputs = {}, {}
+        self._cnt = self._ys = self._r = None
+        self.pool_bytes = 0
 
     def stats(self) -> dict:
-        """The runner's numbers for LAST_RUN_STATS, taken when the run's
-        last flush has been read: warmup_s is the host time from the first
-        flush to the capture, ms_per_graphed_round the host time after
-        the capture over the rounds replayed (None where nothing was
-        captured)."""
-        if self._graphs is None:
+        """The runner's numbers of this run for LAST_RUN_STATS, taken when
+        the run's last flush has been read: warmup_s is the host time from
+        the first flush to the capture, capture_s that of the captures
+        (both None where this run captured nothing), ms_per_graphed_round
+        the host time after the graphs were at hand over the rounds
+        replayed (None where no round was replayed)."""
+        if not self.round_replays:
             return dict(flushes=self.flushes, graphed_flushes=0,
                         round_replays=0, capture_s=None,
                         graph_pool_bytes=None, warmup_s=None,
                         ms_per_graphed_round=None)
-        rounds, epi = self._graphs
         after = time.perf_counter() - self._t_graphed
+        captured = self.capture_s is not None
         return dict(
-            flushes=self.flushes, graphed_flushes=epi.replays,
-            round_replays=rounds.replays, capture_s=round(self.capture_s, 4),
+            flushes=self.flushes, graphed_flushes=self.graphed_flushes,
+            round_replays=self.round_replays,
+            capture_s=round(self.capture_s, 4) if captured else None,
             graph_pool_bytes=self.pool_bytes,
-            warmup_s=round(self._t_capture - self._t_first, 4),
-            ms_per_graphed_round=round(1000 * after / rounds.replays, 3))
+            warmup_s=(round(self._t_capture - self._t_first, 4)
+                      if captured else None),
+            ms_per_graphed_round=round(1000 * after / self.round_replays,
+                                       3))
+
+
+class DeviceRowStager:
+    """Overlap the packed rows' host-to-device copy with the parse (copy
+    of spring_tpu's DeviceRowStager).
+
+    ``feed(r0, rows)`` copies each parsed segment into a device table
+    while the next segment parses, so that the engine starts from device
+    rows. The table holds ``cap`` rows, 1/8-octave granules of at least
+    one segment; a tail segment is padded to the segment's shape. On the
+    card a segment goes through one of two pinned host buffers and is
+    copied without blocking on a side stream, so that the parse does not
+    wait on the card; ``rows()`` makes the caller's stream wait for the
+    copies."""
+
+    def __init__(self, n: int, W: int, seg: int, device="cuda"):
+        gran = max(1 << max(int(max(n, 1) - 1).bit_length() - 3, 6), seg)
+        self.cap = -(-max(n, 1) // gran) * gran
+        self.W = W
+        self.seg = seg
+        self.device = torch.device(device)
+        self._buf = None
+        self._released = False
+        self._fed = 0
+        self._stream = self._pinned = self._copied = None
+
+    def _table(self) -> torch.Tensor:
+        if self._buf is None:
+            self._buf = torch.zeros((self.cap, self.W), dtype=torch.int32,
+                                    device=self.device)
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.Stream(self.device)
+                # the side stream writes the table after it is zeroed
+                self._stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
+                self._pinned = [torch.empty((self.seg, self.W),
+                                            dtype=torch.int32,
+                                            pin_memory=True)
+                                for _ in range(2)]
+                self._copied = [None, None]
+        return self._buf
+
+    def feed(self, r0: int, rows: np.ndarray) -> None:
+        """Copy the (k <= seg, W) uint32 rows of one segment to table rows
+        [r0, r0 + seg)."""
+        self._check_live()
+        buf = self._table()
+        k = rows.shape[0]
+        src = torch.from_numpy(np.ascontiguousarray(rows).view(np.int32))
+        if self.device.type != "cuda":
+            buf[r0:r0 + k] = src
+            buf[r0 + k:r0 + self.seg] = 0
+            return
+        i = self._fed % 2
+        if self._copied[i] is not None:
+            self._copied[i].synchronize()   # the copy of two feeds ago
+        pin = self._pinned[i]
+        pin[:k] = src
+        pin[k:] = 0
+        with torch.cuda.stream(self._stream):
+            buf[r0:r0 + self.seg].copy_(pin, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(self._stream)
+        self._copied[i] = ev
+        self._fed += 1
+
+    def rows(self) -> torch.Tensor:
+        """The (cap, W) int32 device table (zeros if nothing was fed),
+        complete on the caller's stream."""
+        self._check_live()
+        buf = self._table()
+        if self._stream is not None:
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        return buf
+
+    def release(self) -> None:
+        """Drop the table and the pinned buffers and mark the stager
+        unusable: rows() after release raises instead of recreating
+        zeros."""
+        if self._stream is not None:
+            self._stream.synchronize()
+        self._buf = self._pinned = self._copied = self._stream = None
+        self._released = True
+
+    def _check_live(self) -> None:
+        if self._released:
+            raise RuntimeError("DeviceRowStager used after release()")
 
 
 class ReorderEngine:
@@ -579,11 +771,15 @@ class ReorderEngine:
 
     def __init__(self, packed: np.ndarray, lengths: np.ndarray,
                  cfg: ReorderConfig, select: np.ndarray | None = None,
-                 device="cuda"):
+                 device="cuda", rows_dev: torch.Tensor | None = None):
         """With ``select``, packed covers the full read set and the engine
-        operates on packed[select] (gathered on the device)."""
+        operates on packed[select] (gathered on the device). ``rows_dev``
+        is that read set's rows already on the device, a (>= max rid + 1,
+        W) int32 table (DeviceRowStager.rows()): the engine gathers from
+        it instead of copying ``packed``."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self._rows_dev = rows_dev
         if select is None:
             select = np.arange(packed.shape[0], dtype=np.int32)
             lengths_sel = lengths
@@ -608,9 +804,16 @@ class ReorderEngine:
         lengths_p = np.zeros(self.Np, np.int32)
         lengths_p[: self.N] = lengths_sel
         self.lengths = torch.as_tensor(lengths_p, device=self.device)
+        starts = tuple(w.start for w in self.windows)
         *_, self._flush_runner = _flush_program(
             self.Np, cfg.candidates, cfg.shift_chunk, cfg.accept_slots,
-            tuple(w.start for w in self.windows), cfg.thresh)
+            starts, cfg.thresh)
+        # every static thing the runner's buffers and graphs depend on
+        # (jit keys the JAX program on its input shapes by itself)
+        self._program_key = (
+            "single", self.Np, self.W, self.B, self.Lb, starts,
+            cfg.candidates, cfg.shift_chunk, cfg.accept_slots, cfg.thresh,
+            dct._use_wide(self.Np), str(self.device))
 
     def _check_live(self) -> None:
         if self._released:
@@ -626,8 +829,10 @@ class ReorderEngine:
         return self._dicts
 
     def release(self) -> None:
-        """Drop the engine's device tensors and mark it unusable."""
+        """Drop the engine's device tensors and mark it unusable (what the
+        program cache holds stays there; ops/graphs.py)."""
         self._dicts = None
+        self._rows_dev = None
         self.lengths = None
         self._full = None
         self._released = True
@@ -638,9 +843,12 @@ class ReorderEngine:
         self._check_live()
         sel_p = np.full(self.Np, -1, np.int32)
         sel_p[: self.N] = self._sel
-        n_used = int(self._sel.max()) + 1 if self.N else 1
-        full = torch.as_tensor(np.ascontiguousarray(
-            self._full[:n_used]).view(np.int32), device=self.device)
+        if self._rows_dev is not None:
+            full = self._rows_dev
+        else:
+            n_used = int(self._sel.max()) + 1 if self.N else 1
+            full = torch.as_tensor(np.ascontiguousarray(
+                self._full[:n_used]).view(np.int32), device=self.device)
         return _assemble_rows(full, torch.as_tensor(sel_p,
                                                     device=self.device),
                               self.lengths)
@@ -685,14 +893,22 @@ class ReorderEngine:
         rc), walker-major, empty slots filtered out.
 
         The flushes run on one FlushRunner (a replayed CUDA graph on the
-        card). The loop keeps the JAX engine's pipelining exactly, since
-        it decides which reads seed which walkers: flush k+1 is dispatched
-        before flush k's stats are read, seed-queue compaction acts on
-        stats one flush old, and the speculative last flush is
-        harvested."""
+        card), taken from the program cache when an engine of the same key
+        left one there (ops/graphs.py), else built over this run's tensors
+        and left there. The loop keeps the JAX engine's pipelining
+        exactly, since it decides which reads seed which walkers: flush
+        k+1 is dispatched before flush k's stats are read, seed-queue
+        compaction acts on stats one flush old, and the speculative last
+        flush is harvested."""
         dev = self.device
+        # a miss frees the device's old program before this run builds
+        runner = graphs.cached_program(dev, 0, self._program_key)
+        staged = self._rows_dev is not None
         state = self._init_state()
         rows_tab = state.pop("rows")
+        # the staged table is folded into rows_tab: drop it before the
+        # dictionary builds run their temporaries
+        self._rows_dev = None
         self._build_dicts(rows_tab)
         # both dicts' tables stacked: one probe gather serves every dict
         dkeys = torch.cat([d.btab for d in self._dicts], dim=0)
@@ -711,10 +927,21 @@ class ReorderEngine:
         n_real = len(queue)
         # the seed queue lives in static buffers: compaction rewrites them
         seed_order = torch.as_tensor(so.astype(np.int32), device=dev)
-        n_real_dev = torch.tensor(n_real, dtype=torch.int32, device=dev)
-        runner = self._flush_runner(
-            state, self.lengths, dkeys, pairs_all, seed_order, n_real_dev,
-            self.cfg.max_shift, rows_tab)
+        hit = runner is not None
+        if hit:
+            runner.bind(state, dict(
+                lengths=self.lengths, dkeys=dkeys, pairs_all=pairs_all,
+                seed_order=seed_order, n_real=n_real,
+                maxshift=self.cfg.max_shift, rows_tab=rows_tab))
+        else:
+            runner = self._flush_runner(
+                state, self.lengths, dkeys, pairs_all, seed_order, n_real,
+                self.cfg.max_shift, rows_tab)
+        # from here on the run reads and changes the runner's buffers
+        del state, dkeys, pairs_all, seed_order, rows_tab
+        state = runner.state
+        seed_order = runner.inputs["seed_order"]
+        n_real_dev = runner.inputs["n_real"]
         chunks = []
         rounds = compactions = 0
         LAST_RUN_STATS.clear()
@@ -781,12 +1008,18 @@ class ReorderEngine:
             chunks.append(harvest(*f))
         dt = time.time() - t_start
         out = _emissions_from_chunks(chunks)
+        if not hit:     # a run that raised leaves no program behind
+            graphs.cache_program(dev, 0, self._program_key, runner)
         LAST_RUN_STATS.update(
             rounds=rounds, flush_wall_s=round(dt, 3),
             ms_per_round=round(1000 * dt / max(rounds, 1), 2),
             emitted=int(len(out)), walkers=self.B,
             rounds_run=runner.flushes * FLUSH_ROUNDS,
-            queue_compactions=compactions, **runner.stats())
+            queue_compactions=compactions, **runner.stats(),
+            program_cache="hit" if hit else "miss",
+            eager_rounds=runner.eager_rounds,
+            cached_program_bytes=graphs.cached_program_bytes(dev),
+            staged_rows=staged)
         return out
 
 

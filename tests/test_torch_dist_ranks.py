@@ -74,3 +74,21 @@ def rank_one_raises(world):
     # the other ranks wait in a collective for the one that left
     mh.all_gather(world, torch.zeros(4, dtype=torch.int32))
     return world.rank
+
+
+def engine_runs(world, sets, max_readlen, clear_before=()):
+    """The distributed engine on each (packed, lengths) of ``sets`` in
+    turn on this rank, the program cache cleared before the runs whose
+    index is in ``clear_before``. Returns, a run, its emissions and
+    (program_cache, eager_rounds, collectives_per_round)."""
+    out = []
+    for i, (packed, lengths) in enumerate(sets):
+        if i in clear_before:
+            api.clear_program_cache()
+        em = dist.DistReorderEngine(
+            packed, lengths, dist.DistConfig(max_readlen=max_readlen),
+            world=world).run()
+        s = eng.LAST_RUN_STATS
+        out.append((em, (s["program_cache"], s["eager_rounds"],
+                         s["collectives_per_round"])))
+    return out

@@ -193,22 +193,33 @@ def test_count_outside_a_capture_adds_at_once():
 # ---------------- on the card ----------------
 
 def test_cuda_graphed_engine_equals_cpu_runner(cuda_device):
-    """At 4,000 reads the engine captures its round and replays it: the
-    emissions equal the CPU runner's, and verify_rows counted one launch
-    a round run (the eager warm-up flush and every replay)."""
-    packed, lengths = _reads(4000, seed=4000, genome=20_000)
+    """At 4,000 reads the engine (a program-cache miss) calls one round,
+    captures it and replays it: the emissions equal the CPU runner's, and
+    verify_rows counted one launch a round run (the called round and
+    every replay). A second engine on other reads of the same shape finds
+    the runner in the cache: it calls no round, captures nothing, and
+    equals the CPU runner too."""
+    from spring_tpu_torch import api
+    api.clear_program_cache()
     cfg = teng.ReorderConfig(max_readlen=100)
-    want = teng.ReorderEngine(packed, lengths, cfg, device="cpu").run()
-    kernels.verify_rows.launches = 0
-    got = teng.ReorderEngine(packed, lengths, cfg, device=cuda_device).run()
-    torch.cuda.synchronize()
-    stats = teng.LAST_RUN_STATS
-    np.testing.assert_array_equal(got, want)
-    assert stats["graphed_flushes"] >= 1
-    assert stats["round_replays"] == stats["graphed_flushes"] \
-        * teng.FLUSH_ROUNDS
-    assert kernels.verify_rows.launches == stats["rounds_run"]
-    assert stats["capture_s"] > 0
+    for seed, cache in ((4000, "miss"), (4001, "hit")):
+        packed, lengths = _reads(4000, seed=seed, genome=20_000)
+        want = teng.ReorderEngine(packed, lengths, cfg, device="cpu").run()
+        kernels.verify_rows.launches = 0
+        got = teng.ReorderEngine(packed, lengths, cfg,
+                                 device=cuda_device).run()
+        torch.cuda.synchronize()
+        stats = teng.LAST_RUN_STATS
+        np.testing.assert_array_equal(got, want)
+        called = 1 if cache == "miss" else 0
+        assert stats["program_cache"] == cache
+        assert stats["eager_rounds"] == called
+        assert stats["graphed_flushes"] == stats["flushes"] - called
+        assert stats["round_replays"] == stats["rounds_run"] - called
+        assert kernels.verify_rows.launches == stats["rounds_run"]
+        assert (stats["capture_s"] is not None) == (cache == "miss")
+        assert stats["cached_program_bytes"] > stats["graph_pool_bytes"] > 0
+    api.clear_program_cache()
 
 
 def test_cuda_graphed_dist_engine_without_group(cuda_device):
@@ -220,12 +231,16 @@ def test_cuda_graphed_dist_engine_without_group(cuda_device):
     want = tdist.DistReorderEngine(
         packed, lengths, cfg,
         world=tmh.World(None, 0, 1, torch.device("cpu"))).run()
-    kernels.masked_hamming_rows.launches = 0
-    got = tdist.DistReorderEngine(
-        packed, lengths, cfg,
-        world=tmh.World(None, 0, 1, cuda_device)).run()
-    torch.cuda.synchronize()
-    stats = teng.LAST_RUN_STATS
-    np.testing.assert_array_equal(got, want)
-    assert stats["graphed_flushes"] >= 1
-    assert kernels.masked_hamming_rows.launches == stats["rounds_run"]
+    for cache in ("miss", "hit"):
+        if cache == "miss":
+            tmh.shutdown()          # no group; empties the program cache
+        kernels.masked_hamming_rows.launches = 0
+        got = tdist.DistReorderEngine(
+            packed, lengths, cfg,
+            world=tmh.World(None, 0, 1, cuda_device)).run()
+        torch.cuda.synchronize()
+        stats = teng.LAST_RUN_STATS
+        np.testing.assert_array_equal(got, want)
+        assert stats["program_cache"] == cache
+        assert stats["graphed_flushes"] >= 1
+        assert kernels.masked_hamming_rows.launches == stats["rounds_run"]

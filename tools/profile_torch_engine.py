@@ -5,14 +5,17 @@
 
 Builds SRR554369-class packed reads in memory (1% substitutions, both
 strands, ~50x coverage, seed 42), runs spring_tpu_torch's ReorderEngine
-once on cuda to warm up and once under torch.profiler, and prints, under
+once on cuda to warm up (a program-cache miss: it captures the flush
+program and leaves it in the cache) and once under torch.profiler (a
+hit: every round replayed, nothing captured), and prints, under
 the card's name and power limit (nvidia-smi):
   * the dictionary build and run wall times, rounds and ms/round, the
     flush runner's capture+instantiate seconds, graphed flushes and graph
     pool bytes;
   * the host's launch calls a graphed round: ``cudaGraphLaunch`` and
     ``cudaLaunchKernel`` (and its variants) counted apart, from the end
-    of the capture to the end of the run, over the rounds replayed;
+    of the runner's bind to a cached program (or of a miss's first
+    capture) to the end of the run, over the rounds replayed;
   * device kernels a round (all of the run's device kernels, dictionary
     build and flush compaction included, over the rounds run) and the
     device busy share (the union of the kernels' spans over wall time),
@@ -82,12 +85,14 @@ def _busy_us(spans) -> float:
 
 def _trace_counts(events, kernel_name: str) -> dict:
     """Host launch calls, device kernels and the round kernel's calls,
-    split at the end of the flush runner's capture (the record_function
-    range ``stpu::capture``): what comes after it is the graphed part,
-    which spans from its first device kernel to its last. The NCCL
-    kernels that a graph replays do not show in the trace."""
-    cap = [e for e in events if e.name == "stpu::capture"]
-    t_graph = cap[0].time_range.end if cap else float("inf")
+    split at the end of the flush runner's bind to a cached program, or of
+    a miss's first capture (the record_function ranges ``stpu::bind``,
+    ``stpu::capture``): what comes after it is the graphed part, which
+    spans from its first device kernel to its last. The NCCL kernels that
+    a graph replays do not show in the trace."""
+    marks = [e.time_range.end for e in events
+             if e.name in ("stpu::bind", "stpu::capture")]
+    t_graph = min(marks) if marks else float("inf")
     host = {"cudaGraphLaunch": 0, "cudaLaunchKernel": 0}
     spans_all, spans_graph = [], []
     ours_all, ours_graph = [], []
@@ -205,18 +210,21 @@ def main() -> int:
 
     print(f"[engine] {label}; warm-up run without the profiler: "
           f"{warm['rounds']} rounds, {warm['ms_per_round']} ms/round, "
-          f"engine {warm['flush_wall_s']} s, capture+instantiate "
-          f"{warm['capture_s']} s")
+          f"engine {warm['flush_wall_s']} s, program cache "
+          f"{warm['program_cache']}, {warm['eager_rounds']} rounds called, "
+          f"capture+instantiate {warm['capture_s']} s")
     print(f"[engine] {label}; {args.reads} reads: dict build "
           f"{build_s:.3f} s; run {wall:.3f} s, {stats['rounds']} rounds "
           f"({stats['rounds_run']} run, {stats['graphed_flushes']} of "
           f"{stats['flushes']} flushes graphed, {graphed_rounds} round "
-          f"replays), {stats['ms_per_round']} ms/round; capture+"
+          f"replays, program cache {stats['program_cache']}), "
+          f"{stats['ms_per_round']} ms/round; capture+"
           f"instantiate {stats['capture_s']} s; graph pool "
           f"{stats['graph_pool_bytes']} bytes; kernel launches "
           f"{wrapper.launches}")
     print(f"[engine] host launch calls a graphed round (from the end of "
-          f"the capture on, over {graphed_rounds} rounds): cudaGraphLaunch "
+          f"the bind or the first capture on, over {graphed_rounds} "
+          f"rounds): cudaGraphLaunch "
           f"{per_round(c['host']['cudaGraphLaunch'])}, cudaLaunchKernel "
           f"{per_round(c['host']['cudaLaunchKernel'])} (before: every "
           f"round eager, {was('launches_a_round')} launches a round)")
