@@ -67,8 +67,21 @@ Phases, each printing its numbers on a line of its own:
      default options: the first call must stage its rows on the card
      while it parses and prewarm the dictionary build, and miss the
      program cache; the second must hit it, call no round and capture
-     nothing; the two archives byte-equal, the round trip byte-exact.
-Every engine run on the card (phases 4-10) runs its flushes on the flush
+     nothing; the two archives byte-equal, the round trip byte-exact;
+ 11. the engine's tuning paths (CompressOptions.engine): far-shift
+     dictionary thinning (far_near 4), 6 emission slots a round, flushes
+     of 16 rounds and in-bin dictionary compaction (rebuild_fraction).
+     11a: phase 4's set at rebuild_fraction 0.05, card against CPU, byte-
+     equal archives, at least one dictionary compaction in each, the
+     card's round replayed; 11b: phase 5's reads at rebuild_fraction
+     0.22: round trip byte-exact, at least one compaction, a program-cache
+     miss with one round called, launches equal to the rounds run, the
+     archive and unmatched fraction printed beside phase 5's; 11c: the
+     distributed engine at world size 1 over NCCL, as in phase 8, at
+     rebuild_fraction 0.22 and flushes of 16 rounds: round trip byte-
+     exact, at least one compaction, seven collectives a round (a
+     compaction adds none), launches equal to the rounds run.
+Every engine run on the card (phases 4-11) runs its flushes on the flush
 runner (spring_tpu_torch/reorder/engine.py) from the program cache
 (spring_tpu_torch/ops/graphs.py): on a miss the first round called, then
 captured with the flush's compaction and replayed, on a hit every round
@@ -79,7 +92,7 @@ and the cache's bytes; a run with a second round called, a round or a
 compaction not replayed (but a miss's first compaction), a launch count
 other than the rounds run, or a capture on a hit fails. Launch counts and
 collectives are counted at each replay of a graph that holds them.
-Then one JSON line of kernel results (launches summed over phases 5-10,
+Then one JSON line of kernel results (launches summed over phases 5-11,
 each entry's device time beside its bound on this card) and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
 then not 0 and no result line is printed. Needs a CUDA card; imports
@@ -111,6 +124,9 @@ SHARD_CAP = 8_192
 # phase 10: bench.py's profile at 2M reads, the large-input path
 N_LARGE = 2_000_000
 GENOME_LARGE = 4_000_000
+# phase 11: the engine's tuning paths, the knob values of the JAX
+# package's own records (PROFILE.md); rebuild_fraction set per part
+TUNED = dict(far_near=4, cap_per_round=6, flush_rounds=16)
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # and the float32 rate outside the tensor cores, taken here as the rate of
@@ -413,6 +429,8 @@ KERNEL_NAMES = ("verify_rows", "masked_hamming_rows", "masked_hamming")
 def engine_line(stats: dict) -> str:
     """One engine run's numbers from engine.LAST_RUN_STATS."""
     return (f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
+            f"{stats.get('dict_compactions')} dictionary compactions "
+            f"({stats.get('dict_compact_s')} s); "
             f"program cache {stats['program_cache']}, "
             f"{stats['eager_rounds']} rounds called; "
             f"{stats['graphed_flushes']} of {stats['flushes']} flushes "
@@ -483,6 +501,101 @@ def dist_rank(world, fq, arc, threads):
     torch.cuda.synchronize()
     return (time.time() - t, read_counts(kernels, "masked_hamming_rows"),
             torch.cuda.max_memory_allocated(), dict(engine.LAST_RUN_STATS))
+
+
+def need_compactions(what: str, stats: dict) -> None:
+    if not stats.get("dict_compactions"):
+        raise AssertionError(f"{what}: want at least one dictionary "
+                             f"compaction; engine {stats}")
+
+
+def tuning_phase(tmp, fq_small, fq, single, on_card, need_launches, card):
+    """Phase 11: far_near, cap_per_round, flush_rounds and dictionary
+    compaction through CompressOptions.engine. fq_small is phase 4's set,
+    fq phase 5's reads; single holds phase 5's and 8's numbers; on_card
+    and need_launches are main()'s."""
+    import torch
+    from spring_tpu_torch import api
+    from spring_tpu_torch.parallel import multihost
+
+    def tuned(rebuild, **fields):
+        return api.CompressOptions(
+            num_threads=THREADS, verbose=False,
+            engine=dict(TUNED, rebuild_fraction=rebuild), **fields)
+
+    # ---- 11a: the small set, card against CPU
+    a_gpu = os.path.join(tmp, "tuned.gpu.stpu")
+    a_cpu = os.path.join(tmp, "tuned.cpu.stpu")
+    secs, launches, stats = on_card([fq_small], a_gpu, tuned(0.05))
+    from spring_tpu_torch.reorder import engine
+    api.compress([fq_small], a_cpu, tuned(0.05), device="cpu")
+    cpu = dict(engine.LAST_RUN_STATS)
+    same_bytes(a_gpu, a_cpu, "11a: tuned 16k-read archive, card against CPU")
+    need_compactions("11a on the card", stats)
+    need_compactions("11a on the CPU", cpu)
+    need_launches("11a", launches, stats)
+    log(f"[tuned] 11a {N_SMALL} reads, {json.dumps(TUNED)}, "
+        f"rebuild_fraction 0.05: card and CPU archives byte-equal "
+        f"({os.path.getsize(a_gpu)} bytes); card compress {secs:.3f} s; "
+        f"verify_rows launches {launches}; CPU {cpu['dict_compactions']} "
+        f"dictionary compactions; card engine: {engine_line(stats)}")
+
+    # ---- 11b: phase 5's reads on the single engine
+    arc = os.path.join(tmp, "tuned.stpu")
+    out = os.path.join(tmp, "tuned.fastq")
+    secs, launches, stats = on_card([fq], arc, tuned(0.22))
+    api.decompress(arc, [out], num_threads=THREADS, verbose=False)
+    same_bytes(fq, out, "11b: tuned 1M-read round trip")
+    need_compactions("11b", stats)
+    need_launches("11b", launches, stats)
+    if stats["program_cache"] != "miss" or stats["eager_rounds"] != 1:
+        raise AssertionError("11b: want a program-cache miss (a new key) "
+                             f"with one round called; engine {stats}")
+    log(f"[tuned] 11b {N_READS} reads, {json.dumps(TUNED)}, "
+        f"rebuild_fraction 0.22: compress {secs:.3f} s = "
+        f"{N_READS / secs:.1f} reads/s; round trip byte-exact; archive "
+        f"{os.path.getsize(arc)} bytes (phase 5: {single['archive']}); "
+        f"unmatched fraction {stats['unmatched_frac']} (phase 5: "
+        f"{single['unmatched']}); rounds {stats['rounds']} (phase 5: "
+        f"{single['rounds']}); engine {stats['flush_wall_s']} s (phase 5: "
+        f"{single['engine_s']}); {stats['dict_compactions']} dictionary "
+        f"compactions, {stats['dict_compact_s']} s; verify_rows launches "
+        f"{launches}; on {card}")
+    log(f"[tuned] 11b engine {json.dumps(stats)}")
+    log(f"[tuned] 11b engine: {engine_line(stats)}")
+    os.remove(arc)
+    os.remove(out)
+
+    # ---- 11c: the distributed engine, world size 1 over NCCL
+    world = multihost.initialize(0, 1, os.path.join(tmp, "store11"),
+                                 device="cuda", timeout=600.0)
+    try:
+        opts = api.CompressOptions(
+            num_threads=THREADS, verbose=False, dist=True,
+            engine=dict(rebuild_fraction=0.22, flush_rounds=16))
+        secs, launches, stats = on_card([fq], arc, opts)
+    finally:
+        multihost.shutdown()
+    api.decompress(arc, [out], num_threads=THREADS, verbose=False)
+    same_bytes(fq, out, "11c: distributed round trip")
+    need_compactions("11c", stats)
+    need_graphs("11c", stats)
+    if (launches != stats["rounds_run"]
+            or stats["collectives_per_round"] != 7
+            or stats["rounds_run"] != 16 * stats["flushes"]):
+        raise AssertionError(f"11c: {launches} launches of "
+                             f"masked_hamming_rows, engine {stats}")
+    log(f"[tuned] 11c world size 1 over NCCL, flush_rounds 16, "
+        f"rebuild_fraction 0.22: compress {secs:.3f} s; round trip "
+        f"byte-exact; archive {os.path.getsize(arc)} bytes (phase 8: "
+        f"{single['dist_archive']}); unmatched fraction "
+        f"{stats.get('unmatched_frac')}; collectives a round "
+        f"{stats['collectives_per_round']}; {stats['dict_compactions']} "
+        f"dictionary compactions, {stats['dict_compact_s']} s; "
+        f"masked_hamming_rows launches {launches}; engine: "
+        f"{engine_line(stats)}; on {card}")
+    os.remove(arc)
+    os.remove(out)
 
 
 def kernel_phases():
@@ -641,7 +754,9 @@ def main() -> int:
                                  "(phase 4's shape differs) with one round "
                                  f"called; engine {stats}")
         single = dict(archive=os.path.getsize(arc),
-                      engine_s=stats["flush_wall_s"])
+                      engine_s=stats["flush_wall_s"],
+                      unmatched=stats["unmatched_frac"],
+                      rounds=stats["rounds"])
         for f in (arc, out):        # phase 8 compresses fq again
             os.remove(f)
 
@@ -821,6 +936,7 @@ def main() -> int:
             comp_s, launches, stats = on_card(
                 [fq], arc, api.CompressOptions(
                     num_threads=THREADS, verbose=False, dist=True))
+            single["dist_archive"] = os.path.getsize(arc)
             dist_report("dist", 1, comp_s, launches,
                         torch.cuda.max_memory_allocated(), stats)
         finally:
@@ -852,23 +968,22 @@ def main() -> int:
             secs, counts, peak, stats = res[0]
             dist_report("dist-n", n, secs, counts["masked_hamming_rows"],
                         peak, stats)
-        os.remove(fq)
 
         # ---- phase 10: 2M reads, compressed twice in this process: the
         # first call stages its rows and prewarms the dictionary build,
         # the second finds its flush program in the cache
-        fq = os.path.join(tmp, "large.fastq")
+        fq_large = os.path.join(tmp, "large.fastq")
         t = time.time()
-        synth.make_se(fq, N_LARGE, read_len=100, genome_size=GENOME_LARGE,
-                      seed=SEED)
+        synth.make_se(fq_large, N_LARGE, read_len=100,
+                      genome_size=GENOME_LARGE, seed=SEED)
         log(f"[data] {N_LARGE} SE reads x 100 bp, genome {GENOME_LARGE}, "
-            f"seed {SEED}: {os.path.getsize(fq)} bytes in "
+            f"seed {SEED}: {os.path.getsize(fq_large)} bytes in "
             f"{time.time() - t:.1f} s")
         calls = []
         for k in (1, 2):
             arc = os.path.join(tmp, f"large{k}.stpu")
             torch.cuda.reset_peak_memory_stats()
-            secs, launches, stats = on_card([fq], arc, opts)
+            secs, launches, stats = on_card([fq_large], arc, opts)
             peak = torch.cuda.max_memory_allocated()
             need_launches(f"large call {k}", launches, stats)
             log(f"[large] call {k}: device peak at each stage's end "
@@ -894,9 +1009,15 @@ def main() -> int:
                                  f"called and no capture; engine {s2}")
         same_bytes(a1, a2, "the two 2M-read archives")
         api.decompress(a2, [out], num_threads=THREADS, verbose=False)
-        same_bytes(fq, out, "2M-read round trip")
+        same_bytes(fq_large, out, "2M-read round trip")
         log(f"[large] the two archives byte-equal ({os.path.getsize(a2)} "
             f"bytes); round trip byte-exact")
+        for f in (fq_large, a1, a2, out):
+            os.remove(f)
+
+        # ---- phase 11: the engine's tuning paths
+        tuning_phase(tmp, fq2, fq, single, on_card, need_launches, card)
+        os.remove(fq)
 
     def entry(name, launches):
         r = kres[name]
@@ -914,8 +1035,9 @@ def main() -> int:
                 "bound_by")}
         return out
 
-    # the fused entry carries the single-device round (phases 5-7, 10) and
-    # masked_hamming_rows the distributed round (phases 8-9); the
+    # the fused entry carries the single-device round (phases 5-7, 10, 11a
+    # and 11b) and masked_hamming_rows the distributed round (phases 8-9,
+    # 11c); the
     # word-major entry (the Pallas kernel's own signature) is checked and
     # timed in phase 3 and launched by no phase after it
     if not (total["verify_rows"] and total["masked_hamming_rows"]):

@@ -1,9 +1,11 @@
 """Top-level compress/decompress API of the port.
 
 Copy of spring_tpu/api.py, plus an explicit torch ``device`` for
-short-mode compress and ``CompressOptions.dist`` for the distributed
-reorder engine (parallel/dist.py). Long mode (-l) and decompress are host
-code and have no device stage.
+short-mode compress, ``CompressOptions.dist`` for the distributed
+reorder engine (parallel/dist.py), and ``CompressOptions.engine``,
+``min_contig_reads`` and ``stitch``: the settings the JAX package reads
+from its environment in short-mode compress. Long mode (-l) and
+decompress are host code and have no device stage.
 
 Reference analog: spring::compress / spring::decompress
 (src/spring.h:23-36, src/spring.cpp:41-377) — validates options, sequences
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 from . import params as P
 from .io.container import ArchiveReader, ArchiveWriter
@@ -21,6 +23,10 @@ from .ops.graphs import clear_program_cache
 
 __all__ = ["CompressOptions", "clear_program_cache", "compress",
            "decompress"]
+
+# the ReorderConfig fields that CompressOptions.engine may set
+ENGINE_KEYS = ("num_walkers", "shift_chunk", "accept_slots", "far_near",
+               "cap_per_round", "rebuild_fraction", "flush_rounds")
 
 
 @dataclass
@@ -39,6 +45,13 @@ class CompressOptions:
     # parallel.multihost.maybe_initialize finds (one rank without a
     # launcher); every rank makes the same call, rank 0 writes the archive
     dist: bool = False
+    # short mode: overrides of the reorder engine's ReorderConfig fields
+    # (ENGINE_KEYS); on the distributed engine only rebuild_fraction and
+    # flush_rounds apply, as in the JAX package
+    engine: dict = field(default_factory=dict)
+    # short mode: contigs of fewer reads join the leftover pool
+    min_contig_reads: int = P.MIN_CONTIG_READS
+    stitch: bool = True              # stitch overlapping contigs
 
 
 class _DiscardWriter:
@@ -72,6 +85,10 @@ def validate_options(files: list[str], opts: CompressOptions) -> None:
         raise ValueError("binary quality mode needs (threshold, high, low)")
     if opts.fasta_input and opts.quality_mode != "lossless":
         raise ValueError("quality modes do not apply to FASTA input")
+    unknown = sorted(set(getattr(opts, "engine", {})) - set(ENGINE_KEYS))
+    if unknown:
+        raise ValueError(f"unknown engine settings {unknown}; known: "
+                         f"{list(ENGINE_KEYS)}")
     for f in files:
         if not os.path.exists(f):
             raise FileNotFoundError(f)
@@ -96,6 +113,12 @@ def compress(files: list[str], output: str,
         bin_thresholds=tuple(opts.bin_thresholds),
     )
     t0 = time.time()
+    # an options object of spring_tpu's shape, without these fields, is
+    # taken with their defaults
+    short = dict(engine=getattr(opts, "engine", {}),
+                 min_contig_reads=getattr(opts, "min_contig_reads",
+                                          P.MIN_CONTIG_READS),
+                 stitch=getattr(opts, "stitch", True))
     world = None
     # an options object of spring_tpu's shape, without the field, is taken
     if getattr(opts, "dist", False) and not opts.long_mode:
@@ -106,7 +129,7 @@ def compress(files: list[str], output: str,
         with _DiscardWriter() as writer:
             from .pipeline import short_mode
             short_mode.compress_short(files, writer, cp, opts.num_threads,
-                                      device=device, world=world)
+                                      device=device, world=world, **short)
         return cp
     # short mode spools: codec workers write members as they complete
     # (bounded memory), tar emitted in canonical order at finish()
@@ -117,7 +140,7 @@ def compress(files: list[str], output: str,
         else:
             from .pipeline import short_mode
             short_mode.compress_short(files, writer, cp, opts.num_threads,
-                                      device=device, world=world)
+                                      device=device, world=world, **short)
         writer.finish(cp)
     _log(opts, f"compressed {cp.num_reads} reads -> "
                f"{os.path.getsize(output)} bytes in {time.time()-t0:.2f}s")

@@ -46,10 +46,12 @@ Collectives a round: 2 all_to_alls (probe keys, meta words), 2 (candidate
 requests, rids), 2 (row requests, rows), 1 all_gather (claim proposals).
 All O(B/n) sized except the proposal gather (O(B)).
 
-Not ported: the JAX program's ``compact_fn`` (in-bin dictionary
-compaction). It triggers when the claimed count grows by
-REBUILD_FRACTION = 10 times the read count within a run, which cannot
-happen; the single-device port leaves it out for the same reason.
+In-bin dictionary compaction (the JAX program's ``compact_fn``): when
+the claimed count has grown by ``DistConfig.rebuild_fraction`` of the
+reads since the last one, each rank compacts the bins of its own merged
+table against its copy of the claimed bitmap and rewrites its pair rows
+in place. No collective: the bitmap is replicated. Off by default (a
+fraction above 1 never triggers), as in the JAX engine.
 """
 from __future__ import annotations
 
@@ -87,6 +89,11 @@ class DistConfig:
     shift_chunk: int = 16
     accept_slots: int = 16
     capacity_factor: float = 2.0   # all_to_all slack over the uniform load
+    # the two knobs the JAX engine takes from its module globals
+    # (REBUILD_FRACTION, FLUSH_ROUNDS): ReorderConfig's meaning and
+    # defaults; the emission slots a round stay at 3 (scaled by SC / 16)
+    rebuild_fraction: float = 10.0
+    flush_rounds: int = eng.FLUSH_ROUNDS
 
     def __post_init__(self):
         # same cap as ReorderConfig
@@ -176,9 +183,10 @@ def _probe_meta_sc(btab: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
 
 def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                    SC: int, accept_slots: int, starts: tuple, thresh: int,
-                   capf: float) -> dict:
-    """The build, flush and flush-runner functions of one rank for one
-    static shape signature, and the sizes that follow from it. The
+                   capf: float,
+                   flush_rounds: int = eng.FLUSH_ROUNDS) -> dict:
+    """The build, compact, flush and flush-runner functions of one rank
+    for one static shape signature, and the sizes that follow from it. The
     collectives go through ``ctx["world"]``: an engine that takes this
     program's runner from the cache puts its own World (of the same
     group) there."""
@@ -197,7 +205,7 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
     GSEL = max(1, min(accept_slots, G * C) // C)
     M = GSEL * C
     S_EMIT = M + 1
-    CAP = eng.FLUSH_ROUNDS * max(3, 3 * SC // 16) + S_EMIT
+    CAP = flush_rounds * max(3, 3 * SC // 16) + S_EMIT
     nwords = Np // 32 + 2
     # exchange capacities (per destination, per rank), never above the
     # query count itself (at n <= 2 the slack factor would size the tables
@@ -250,6 +258,14 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
             bits.u32(rk), rr >= 0, S, compact=True, rids=rr)
         return (btab, h_s, rids_s, dct.pairs_from_rids(rids_s),
                 dropped.reshape(1))
+
+    # ---------------- dictionary compaction (local, no collective) ------
+
+    def compact_fn(keys_l, rids_l, claimed):
+        """This rank's bins compacted against the replicated bitmap, and
+        the pair rows of the new rids."""
+        rids2 = dct.compact_bins_dev(keys_l, rids_l, claimed)
+        return rids2, dct.pairs_from_rids(rids2)
 
     # ---------------- the sharded round ----------------
 
@@ -504,7 +520,7 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                          queue_pos=qpos, n_queue=nq)
         return new_state, emit.to(i32)
 
-    # ---------------- the flush (FLUSH_ROUNDS rounds) ----------------
+    # ---------------- the flush (flush_rounds rounds) ----------------
 
     def flush_runner(state, btab, pairs, rows_local, seed_slice,
                      maxshift) -> eng.FlushRunner:
@@ -514,7 +530,7 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
         ``state["n_queue"]`` and ``state["queue_pos"]`` in place only
         (through the runner's ``state`` and ``inputs``, which a later
         engine binds anew); maxshift may be an int. The runner's
-        ``world_ctx`` is this program's ``ctx``. A flush runs FLUSH_ROUNDS
+        ``world_ctx`` is this program's ``ctx``. A flush runs flush_rounds
         rounds, then compacts each walker's stacked emissions once by a
         stable sort that puts empty slots last, and returns (buf (Bl,
         CAP, 2), stats (1, 4)) with stats = (claimed bits, queue_pos,
@@ -546,7 +562,8 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                 cnt.sum()]).to(torch.int32)[None, :]
             return buf, stats
 
-        runner = eng.FlushRunner(state, inputs, step, compact, S_EMIT, CAP)
+        runner = eng.FlushRunner(state, inputs, step, compact, S_EMIT, CAP,
+                                 flush_rounds)
         runner.world_ctx = ctx
         return runner
 
@@ -557,8 +574,8 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                               maxshift)
         return (runner.state, *runner.flush())
 
-    return dict(build=build_fn, flush=flush_fn, runner=flush_runner,
-                CAP=CAP, Bl=Bl, Npl=Npl, M=M)
+    return dict(build=build_fn, compact=compact_fn, flush=flush_fn,
+                runner=flush_runner, CAP=CAP, Bl=Bl, Npl=Npl, M=M)
 
 
 class DistReorderEngine:
@@ -591,14 +608,15 @@ class DistReorderEngine:
         self._prog = _dist_programs(
             self.world, self.Np, self.W, self.B, cfg.candidates,
             cfg.shift_chunk, cfg.accept_slots, starts, cfg.thresh,
-            cfg.capacity_factor)
+            cfg.capacity_factor, cfg.flush_rounds)
         # the runner's key in the program cache: the world (as JAX keys
         # its programs on the mesh) and every static shape
         wd = self.world
         self._program_key = (
             "dist", wd.group, wd.rank, wd.size, str(wd.device), self.Np,
             self.W, self.B, cfg.candidates, cfg.shift_chunk,
-            cfg.accept_slots, starts, cfg.thresh, cfg.capacity_factor)
+            cfg.accept_slots, starts, cfg.thresh, cfg.capacity_factor,
+            cfg.flush_rounds)
         # padded rows + length word; padding rows carry the claimed bit
         # (the only claim bit rows ever hold: live claim state is the
         # replicated bitmap, rows are read-only)
@@ -666,7 +684,8 @@ class DistReorderEngine:
         replayed CUDA graph, collectives included). The host loop keeps
         the JAX engine's pipelining: flush k+1 is dispatched before flush
         k's stats are read, and the speculative last flush is
-        harvested."""
+        harvested. Dictionary compaction follows the single engine's
+        trigger and order (reorder/engine.py, ReorderEngine.run)."""
         self._check_live()
         prog = self._prog
         w = self.world
@@ -675,7 +694,8 @@ class DistReorderEngine:
         # a miss frees the device's old program before this run builds
         runner = graphs.cached_program(w.device, w.rank, self._program_key)
         rows_dev = mh.put_sharded(w, self.packed)
-        btab, _, _, pairs, dropped = prog["build"](rows_dev)
+        # the merged table's sorted keys and rids stay for compaction
+        btab, keys_l, rids_l, pairs, dropped = prog["build"](rows_dev)
         nd = int(mh.to_host(w, dropped).sum())
         if nd:
             print(f"[dict] {nd} keys overflowed the sharded hash tables "
@@ -708,8 +728,10 @@ class DistReorderEngine:
         state = runner.state
         seed_dev = runner.inputs["seed_slice"]
         chunks = []
-        rounds = compactions = 0
+        rounds = compactions = dict_compactions = last_claimed = 0
         round_collectives = 0
+        dict_compact_s = 0.0
+        flush_rounds = self.cfg.flush_rounds
         eng.LAST_RUN_STATS.clear()
         t_start = time.time()
 
@@ -730,7 +752,7 @@ class DistReorderEngine:
             inflight = nxt
             stats_np = mh.to_host(w, stats_k).reshape(n, 4)
             chunks.append(harvest(buf_k))
-            rounds += eng.FLUSH_ROUNDS
+            rounds += flush_rounds
             n_claimed = int(stats_np[0, 0]) - (self.Np - self.N)
             any_active = stats_np[:, 2].sum() > 0
             emitted = int(stats_np[:, 3].sum())
@@ -742,6 +764,24 @@ class DistReorderEngine:
                 break
             if max_rounds is not None and rounds >= max_rounds:
                 break
+            # in-bin dictionary compaction on the bitmap the flush in
+            # flight leaves; the pair rows are rewritten in the runner's
+            # buffer (its graphs read them at a fixed address)
+            if (n_claimed - last_claimed
+                    > self.cfg.rebuild_fraction * max(self.N, 1)):
+                cuda = w.device.type == "cuda"
+                if cuda:
+                    torch.cuda.synchronize(w.device)
+                tc = time.perf_counter()
+                rids_l, new_pairs = prog["compact"](keys_l, rids_l,
+                                                    state["claimed"])
+                runner.inputs["pairs"].copy_(new_pairs)
+                del new_pairs
+                if cuda:
+                    torch.cuda.synchronize(w.device)
+                dict_compact_s += time.perf_counter() - tc
+                dict_compactions += 1
+                last_claimed = n_claimed
             # endgame seed-queue compaction (drop claimed reads so the
             # tail doesn't burn rounds skipping them batch by batch)
             if n_claimed < self.N and \
@@ -769,15 +809,16 @@ class DistReorderEngine:
             ms_per_round=round(1000 * dt / max(rounds, 1), 2),
             emitted=int(len(out)), walkers=self.B, world_size=n,
             emissions_sha256=hashlib.sha256(out.tobytes()).hexdigest(),
-            rounds_run=runner.flushes * eng.FLUSH_ROUNDS,
-            queue_compactions=compactions,
+            rounds_run=runner.flushes * flush_rounds,
+            queue_compactions=compactions, dict_compactions=dict_compactions,
+            dict_compact_s=round(dict_compact_s, 4),
             collectives=w.collectives - collectives0,
             # host seconds inside the collectives, known only where every
             # flush called them (a graph replays them with no host call)
             collective_host_s=(round(w.collective_s - collective_s0, 3)
                                if not rstats["graphed_flushes"] else None),
             collectives_per_round=round(
-                round_collectives / (runner.flushes * eng.FLUSH_ROUNDS), 3),
+                round_collectives / (runner.flushes * flush_rounds), 3),
             **rstats, program_cache="hit" if hit else "miss",
             eager_rounds=runner.eager_rounds,
             cached_program_bytes=graphs.cached_program_bytes(w.device))

@@ -121,11 +121,23 @@ LAST_STAGE_PEAK_BYTES: dict[str, int] = {}
 
 def compress_short(files: list[str], writer: ArchiveWriter,
                    cp: P.CompressionParams, num_threads: int = 8,
-                   device="cuda", _scanned=None, world=None) -> None:
+                   device="cuda", _scanned=None, world=None,
+                   engine: dict | None = None,
+                   min_contig_reads: int = P.MIN_CONTIG_READS,
+                   stitch: bool = True) -> None:
     """``world`` (a parallel.multihost.World) routes the reorder through
     the distributed engine. Every rank of it makes this same call on the
     same input; rank 0 goes on to write the archive, the other ranks
-    return once the engine has run (nothing after it is collective)."""
+    return once the engine has run (nothing after it is collective).
+
+    ``engine`` overrides fields of the single engine's ReorderConfig
+    (num_walkers, shift_chunk, accept_slots, far_near, cap_per_round,
+    rebuild_fraction, flush_rounds), as the JAX package's environment
+    knobs do; on the distributed engine only rebuild_fraction and
+    flush_rounds apply (DistConfig), as in the JAX package, and the
+    others are ignored. Contigs of fewer than ``min_contig_reads`` reads
+    join the leftover pool; ``stitch`` False skips contig stitching."""
+    engine_cfg = dict(engine or {})
     primary = world is None or world.rank == 0
     if _scanned is None:    # a shard adds its stages to the outer call's
         LAST_STAGE_SECONDS.clear()
@@ -165,8 +177,10 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     if n > cap:
         if _scanned is not None:
             raise RuntimeError("shard slicing exceeded the read cap")
+        knobs = dict(engine=engine_cfg, min_contig_reads=min_contig_reads,
+                     stitch=stitch)
         _compress_sharded(files, writer, cp, num_threads, bufs, infos, cap,
-                          device, world)
+                          device, world, knobs)
         return
     cp.num_reads = n
     cp.num_blocks = -(-n // block) if n else 0
@@ -401,11 +415,16 @@ def compress_short(files: list[str], writer: ArchiveWriter,
             from ..parallel import dist as dist_mod
             engine = dist_mod.DistReorderEngine(
                 np.ascontiguousarray(packed_all[clean_rids]), c_len,
-                dist_mod.DistConfig(max_readlen=maxlen), world=world)
+                dist_mod.DistConfig(
+                    max_readlen=maxlen,
+                    **{k: v for k, v in engine_cfg.items()
+                       if k in ("rebuild_fraction", "flush_rounds")}),
+                world=world)
         else:
             # the clean-row gather happens on the device (engine `select`)
             engine = eng.ReorderEngine(
-                packed_buf, lengths, eng.ReorderConfig(max_readlen=maxlen),
+                packed_buf, lengths,
+                eng.ReorderConfig(max_readlen=maxlen, **engine_cfg),
                 select=clean_rids, device=device,
                 rows_dev=stager.rows() if stager is not None else None)
         if stager is not None:
@@ -426,7 +445,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         # contigs below MIN_CONTIG_READS join the leftover pool and
         # re-place in the second-chance pass
         layout, _singles = cons.layout_from_emissions(
-            emissions, engine.B, c_len, min_reads=P.MIN_CONTIG_READS,
+            emissions, engine.B, c_len, min_reads=min_contig_reads,
             ordered=engine.ordered_emissions)
         engine.release()
         engine = None
@@ -443,14 +462,15 @@ def compress_short(files: list[str], writer: ArchiveWriter,
             mark("consensus")
             # stitch contigs whose heads re-align inside other contigs,
             # then re-vote the merged consensus
-            glay2, n_st = stch.stitch_layout(glay, seq_codes, lengths,
-                                             device=device)
-            if n_st:
-                glay = glay2
-                g = glay.rids
-                seq_codes = cons.build_consensus_packed(
-                    glay, packed_all, lengths)
-            mark(f"stitch[{n_st}]")
+            if stitch:
+                glay2, n_st = stch.stitch_layout(glay, seq_codes, lengths,
+                                                 device=device)
+                if n_st:
+                    glay = glay2
+                    g = glay.rids
+                    seq_codes = cons.build_consensus_packed(
+                        glay, packed_all, lengths)
+                mark(f"stitch[{n_st}]")
             if len(seq_codes) <= 2**31 - 1:     # guard below still fires
                 _submit_seq()
             nn, noisepos, noisechar = cons.extract_noise_packed(
@@ -698,7 +718,10 @@ def _slice_scan(info, a: int, b: int, stride: int):
 
 
 def _compress_sharded(files, writer, cp, num_threads, bufs, infos,
-                      cap: int, device, world=None) -> None:
+                      cap: int, device, world=None, knobs=None) -> None:
+    """Compress super-shards of at most ``cap`` reads each into one
+    archive; ``knobs`` are compress_short's engine, min_contig_reads and
+    stitch arguments."""
     stride = fastq_native.ckpt_stride()
     nfiles = len(files)
     per_file = infos[0].n
@@ -726,7 +749,7 @@ def _compress_sharded(files, writer, cp, num_threads, bufs, infos,
         sub = [_slice_scan(i, a, b, stride) for i in infos]
         pw = _ShardWriter(writer, f"sh{j}/")
         compress_short(files, pw, cpj, num_threads, device=device,
-                       _scanned=(bufs, sub), world=world)
+                       _scanned=(bufs, sub), world=world, **(knobs or {}))
         pw.add("params.json", cpj.to_json().encode())
         shard_reads.append(cpj.num_reads)
         maxlen = max(maxlen, cpj.max_readlen)

@@ -254,6 +254,43 @@ def pairs_from_rids(rids: torch.Tensor) -> torch.Tensor:
     return torch.where(idx >= n, -1, out)
 
 
+def compact_bins_dev(keys_s: torch.Tensor, rids_s: torch.Tensor,
+                     claimed: torch.Tensor) -> torch.Tensor:
+    """In-bin compaction on the device: the live entries of each bin move
+    to its front, ordered by ascending rid, and the dead ones (rid < 0, or
+    claimed in the engine's bitmap ``claimed``) become -1; bin starts and
+    counts are unchanged. keys_s: the sorted int32-pattern bin keys of
+    the build; rids_s: its int32 rids. Reference analog: the bin deletion
+    of src/bitset_util.cpp:38-63.
+
+    One sort of (key, dead << 31 | rid), both halves ordered as unsigned
+    32-bit words (the key's bit 31 flipped, so that the composite is a
+    signed int64): within a bin live entries come first by ascending rid,
+    the canonical in-bin order of the build."""
+    safe = rids_s.clamp(0, claimed.shape[0] * 32 - 1).to(torch.int64)
+    bit = (claimed[safe >> 5] >> (safe & 31)) & 1
+    dead = (rids_s < 0) | (bit == 1)
+    key2 = (torch.where(dead, 1 << 31, 0)
+            | torch.where(rids_s < 0, 0, rids_s).to(torch.int64))
+    skey, _ = torch.sort((bits.u32(keys_s) - 2**31) * 2**32 + key2)
+    key2_s = skey & bits.MASK32
+    return torch.where((key2_s >> 31) == 1, -1, key2_s).to(torch.int32)
+
+
+def compact_bins(rids_np: np.ndarray, keys_np: np.ndarray,
+                 claimed_np: np.ndarray) -> np.ndarray:
+    """In-bin compaction on the host (the plain version of
+    compact_bins_dev; copy of spring_tpu's compact_bins): move live
+    entries to each bin's front without changing bin starts and counts
+    (stable sort by (key, dead)). claimed_np: a bool per rid."""
+    dead = (rids_np < 0) | claimed_np[np.clip(rids_np, 0,
+                                              len(claimed_np) - 1)]
+    order = np.lexsort((dead, keys_np))
+    new_rids = rids_np[order].copy()
+    new_rids[dead[order]] = -1
+    return new_rids
+
+
 def _tag_rows(row: torch.Tensor, qflat: torch.Tensor):
     """(Q, words) int64 bucket rows -> per-slot 16-bit tags (Q, SLOTS) and
     the queries' tags (Q,)."""

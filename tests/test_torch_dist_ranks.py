@@ -27,10 +27,12 @@ def helpers(world):
         collectives=world.collectives)
 
 
-def engine_run(world, packed, lengths, max_readlen):
-    """Emissions and run stats of the distributed engine on this rank."""
+def engine_run(world, packed, lengths, max_readlen, knobs=None):
+    """Emissions and run stats of the distributed engine on this rank;
+    ``knobs`` are DistConfig fields."""
     e = dist.DistReorderEngine(packed, lengths,
-                               dist.DistConfig(max_readlen=max_readlen),
+                               dist.DistConfig(max_readlen=max_readlen,
+                                               **(knobs or {})),
                                world=world)
     em = e.run()
     return em, dict(eng.LAST_RUN_STATS)

@@ -244,3 +244,50 @@ def test_cuda_graphed_dist_engine_without_group(cuda_device):
         assert stats["program_cache"] == cache
         assert stats["graphed_flushes"] >= 1
         assert kernels.masked_hamming_rows.launches == stats["rounds_run"]
+
+
+def test_cuda_graphed_engine_with_compaction_and_16_rounds(cuda_device):
+    """The graphed single engine at flush_rounds 16 with dictionary
+    compactions (pair rows rewritten in place between replays) equals the
+    CPU runner, with one verify_rows launch a round run."""
+    from spring_tpu_torch import api
+    api.clear_program_cache()
+    cfg = teng.ReorderConfig(max_readlen=100, flush_rounds=16,
+                             rebuild_fraction=0.05)
+    packed, lengths = _reads(4000, seed=4002, genome=12_000)
+    want = teng.ReorderEngine(packed, lengths, cfg, device="cpu").run()
+    cpu = dict(teng.LAST_RUN_STATS)
+    kernels.verify_rows.launches = 0
+    got = teng.ReorderEngine(packed, lengths, cfg, device=cuda_device).run()
+    torch.cuda.synchronize()
+    stats = teng.LAST_RUN_STATS
+    np.testing.assert_array_equal(got, want)
+    assert stats["dict_compactions"] == cpu["dict_compactions"] >= 1
+    assert stats["rounds_run"] == 16 * stats["flushes"]
+    assert stats["round_replays"] == stats["rounds_run"] - 1
+    assert kernels.verify_rows.launches == stats["rounds_run"]
+    api.clear_program_cache()
+
+
+def test_cuda_graphed_dist_engine_with_compaction_and_16_rounds(cuda_device):
+    """The graphed distributed engine (one rank, no group) at
+    flush_rounds 16 with dictionary compactions equals the CPU run, with
+    one masked_hamming_rows launch a round run."""
+    packed, lengths = _reads(900, seed=24, genome=3000, short_every=50)
+    cfg = tdist.DistConfig(max_readlen=100, flush_rounds=16,
+                           rebuild_fraction=0.05)
+    want = tdist.DistReorderEngine(
+        packed, lengths, cfg,
+        world=tmh.World(None, 0, 1, torch.device("cpu"))).run()
+    cpu = dict(teng.LAST_RUN_STATS)
+    tmh.shutdown()          # no group; empties the program cache
+    kernels.masked_hamming_rows.launches = 0
+    got = tdist.DistReorderEngine(
+        packed, lengths, cfg, world=tmh.World(None, 0, 1, cuda_device)).run()
+    torch.cuda.synchronize()
+    stats = teng.LAST_RUN_STATS
+    np.testing.assert_array_equal(got, want)
+    assert stats["dict_compactions"] == cpu["dict_compactions"] >= 1
+    assert stats["graphed_flushes"] == stats["flushes"] - 1
+    assert kernels.masked_hamming_rows.launches == stats["rounds_run"]
+    tmh.shutdown()

@@ -7,6 +7,9 @@ shape evicts the runner; the same for the distributed engine at world
 sizes 1 and 2 (gloo); and, through a CPU stand-in for ops/graphs.Graph
 that records a body at capture and runs it at each replay, the card's
 schedule of one called round and 31 replayed ones in the first flush.
+Engines that differ only in far_near, cap_per_round or flush_rounds miss
+the cache; a dictionary compaction rewrites the runner's pair rows in
+place (their address pinned), on a miss and on a hit, exact against JAX.
 """
 import numpy as np
 import pytest
@@ -183,3 +186,137 @@ def test_one_called_round_then_replays_equals_jax(monkeypatch):
         assert s["graphed_flushes"] == s["flushes"] - (1 if miss else 0)
         assert (s["capture_s"] is None) == (not miss)
         assert s["flushes"] >= 3 and s["queue_compactions"] >= 1
+
+
+# ---------------- the engine's knobs and dictionary compaction ----------
+
+def _jax_knobbed(monkeypatch, packed, lengths, rebuild_fraction=None,
+                 flush_rounds=None, **cfg):
+    """The JAX engine under the module globals the port's ReorderConfig
+    fields stand for; its program cache is cleared around the run (it is
+    not keyed on FLUSH_ROUNDS)."""
+    _, jeng = _jax()
+    with monkeypatch.context() as m:
+        if rebuild_fraction is not None:
+            m.setattr(jeng, "REBUILD_FRACTION", rebuild_fraction)
+        if flush_rounds is not None:
+            m.setattr(jeng, "FLUSH_ROUNDS", flush_rounds)
+        if "cap_per_round" in cfg:
+            m.setenv("SPRING_TPU_CAP_PER_ROUND", str(cfg.pop("cap_per_round")))
+        jeng._flush_program.cache_clear()
+        try:
+            return jeng.ReorderEngine(packed, lengths, jeng.ReorderConfig(
+                max_readlen=100, **cfg)).run()
+        finally:
+            jeng._flush_program.cache_clear()
+
+
+def _knobbed(packed, lengths, **knobs):
+    em = teng.ReorderEngine(packed, lengths,
+                            teng.ReorderConfig(max_readlen=100, **knobs),
+                            device="cpu").run()
+    return em, dict(teng.LAST_RUN_STATS)
+
+
+def test_a_knob_of_the_program_misses_the_cache(monkeypatch):
+    """Engines of one shape that differ only in far_near, cap_per_round
+    or flush_rounds each miss the cache (rebuild_fraction, read by the
+    host loop, hits it); a repeat hits, and equals JAX."""
+    a, = _sets(2000, (101,), genome=9000)
+    runs = [({}, "miss"), (dict(far_near=4), "miss"),
+            (dict(far_near=4), "hit"), (dict(cap_per_round=6), "miss"),
+            (dict(flush_rounds=16), "miss"),
+            (dict(flush_rounds=16, rebuild_fraction=0.05), "hit")]
+    for k, (knobs, cache) in enumerate(runs):
+        em, stats = _knobbed(*a, **knobs)
+        assert stats["program_cache"] == cache, k
+        assert len(graphs._programs) == 1
+    np.testing.assert_array_equal(
+        em, _jax_knobbed(monkeypatch, *a, rebuild_fraction=0.05,
+                         flush_rounds=16))
+    assert stats["dict_compactions"] >= 1
+
+
+def _record_pairs(monkeypatch, key):
+    """Record, at each flush, the address of the runner's pair rows and,
+    at the first flush, a copy of them."""
+    seen = dict(ptrs=[], first=None)
+    flush = teng.FlushRunner.flush
+
+    def recorded(runner):
+        pairs = runner.inputs[key]
+        seen["ptrs"].append(pairs.data_ptr())
+        if seen["first"] is None:
+            seen["first"] = pairs.clone()
+        seen["last"] = pairs
+        return flush(runner)
+
+    monkeypatch.setattr(teng.FlushRunner, "flush", recorded)
+    return seen
+
+
+def test_compaction_rewrites_pairs_all_in_place(monkeypatch):
+    """A dictionary compaction writes the new pair rows into the runner's
+    pairs_all buffer: its address stays through the run (the card's
+    graphs read it there), and its contents change."""
+    a, = _sets(3000, (102,), genome=9000)
+    seen = _record_pairs(monkeypatch, "pairs_all")
+    em, stats = _knobbed(*a, rebuild_fraction=0.05)
+    assert stats["dict_compactions"] >= 2
+    assert len(seen["ptrs"]) == stats["flushes"]
+    assert len(set(seen["ptrs"])) == 1
+    assert not torch.equal(seen["first"], seen["last"])
+    np.testing.assert_array_equal(
+        em, _jax_knobbed(monkeypatch, *a, rebuild_fraction=0.05))
+
+
+def test_dist_compaction_rewrites_pairs_in_place(monkeypatch):
+    """The same for the distributed engine's pairs buffer, at world size
+    1, and the run equals JAX's."""
+    jdist, jeng = _jax()
+    packed, lengths = _reads(900, seed=103, genome=3000, short_every=50)
+    seen = _record_pairs(monkeypatch, "pairs")
+    world = tmh.World(None, 0, 1, torch.device("cpu"))
+    em = tdist.DistReorderEngine(
+        packed, lengths, tdist.DistConfig(max_readlen=100,
+                                          rebuild_fraction=0.05),
+        world=world).run()
+    stats = teng.LAST_RUN_STATS
+    assert stats["dict_compactions"] >= 2
+    assert len(set(seen["ptrs"])) == 1
+    assert not torch.equal(seen["first"], seen["last"])
+    monkeypatch.setattr(jeng, "REBUILD_FRACTION", 0.05)
+    np.testing.assert_array_equal(em, _jax_dist(packed, lengths, 1))
+
+
+def test_a_hit_after_a_compacting_run_equals_jax(monkeypatch):
+    """A compacting run leaves its runner in the cache with compacted
+    pair rows; the next engine of the key binds its own (uncompacted)
+    rows and compacts them in turn: both runs equal JAX."""
+    sets = _sets(2500, (104, 105), genome=9000)
+    for i, cache in ((0, "miss"), (1, "hit")):
+        em, stats = _knobbed(*sets[i], rebuild_fraction=0.05)
+        assert stats["program_cache"] == cache
+        assert stats["dict_compactions"] >= 1
+        np.testing.assert_array_equal(
+            em, _jax_knobbed(monkeypatch, *sets[i], rebuild_fraction=0.05))
+
+
+def test_card_schedule_with_compaction_and_16_rounds_equals_jax(monkeypatch):
+    """The card's schedule (the stand-in Graph) at flush_rounds 16 with
+    dictionary compactions: a miss calls one round and replays 15 in the
+    first flush, the compactions rewrite the pairs between replays, and
+    the emissions equal JAX's."""
+    monkeypatch.setattr(graphs, "enabled", lambda device: True)
+    monkeypatch.setattr(graphs, "Graph", StandInGraph)
+    a, = _sets(2500, (106,), genome=9000)
+    StandInGraph.captures = 0
+    em, s = _knobbed(*a, rebuild_fraction=0.05, flush_rounds=16)
+    assert s["program_cache"] == "miss" and s["eager_rounds"] == 1
+    assert StandInGraph.captures == 2
+    assert s["round_replays"] == s["rounds_run"] - 1
+    assert s["rounds_run"] == 16 * s["flushes"]
+    assert s["dict_compactions"] >= 1
+    np.testing.assert_array_equal(
+        em, _jax_knobbed(monkeypatch, *a, rebuild_fraction=0.05,
+                         flush_rounds=16))
