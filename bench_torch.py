@@ -19,7 +19,11 @@ it in the program cache). The headline value is the large scale's rate.
 Prints exactly one JSON line on stdout, with bench.py's keys (metric,
 value, unit, vs_baseline, reads, small_scale, stage_s, engine, probe)
 plus each pass's seconds, engine cache state and device peak at the end
-of each stage (pipeline/short_mode.py), decompress seconds,
+of each stage (pipeline/short_mode.py), its peak reserved device memory
+(torch.cuda.max_memory_reserved: it holds the cached programs' CUDA graph
+pools, whose temporaries a replay does not allocate anew), the cached
+programs' bytes and the matchers' loops (ops/graphs.py::LOOP_STATS),
+decompress seconds,
 archive bytes, peak device memory (torch.cuda.max_memory_allocated over
 the timed passes, also a pass), and the card's name and power limit as
 nvidia-smi gives them. The probe is CUDA's: the host's synchronize
@@ -119,6 +123,7 @@ def run_scale(torch, device, n: int, tmp: str, passes: int,
     pass's."""
     from spring_tpu_torch import api
     from spring_tpu_torch.io.container import ArchiveReader
+    from spring_tpu_torch.ops import graphs
     from spring_tpu_torch.pipeline import short_mode
     from spring_tpu_torch.reorder import engine as eng
     cuda = device.type == "cuda"
@@ -144,6 +149,9 @@ def run_scale(torch, device, n: int, tmp: str, passes: int,
         return (time.time() - t0,
                 torch.cuda.max_memory_allocated(device) if cuda else None)
 
+    def reserved():
+        return torch.cuda.max_memory_reserved(device) if cuda else None
+
     if warm:
         dt, _ = compress()
         log(f"[{n}] warm-up compress {dt:.2f} s")
@@ -154,6 +162,10 @@ def run_scale(torch, device, n: int, tmp: str, passes: int,
         stats = dict(eng.LAST_RUN_STATS)
         each.append(dict(compress_s=round(dt, 3),
                          reads_per_s=round(n / dt, 1), peak_device_bytes=peak,
+                         peak_reserved_bytes=reserved(),
+                         cached_program_bytes=graphs.cached_program_bytes(
+                             device),
+                         loops=dict(graphs.LOOP_STATS),
                          program_cache=stats.get("program_cache"),
                          eager_rounds=stats.get("eager_rounds"),
                          engine_s=stats.get("flush_wall_s"),

@@ -80,7 +80,22 @@ Phases, each printing its numbers on a line of its own:
      distributed engine at world size 1 over NCCL, as in phase 8, at
      rebuild_fraction 0.22 and flushes of 16 rounds: round trip byte-
      exact, at least one compaction, seven collectives a round (a
-     compaction adds none), launches equal to the rounds run.
+     compaction adds none), launches equal to the rounds run;
+ 12. the rest of the port: 12a, wide dictionary rows on demand
+     (CompressOptions.engine force_wide) on phase 4's set, card against
+     CPU, byte-equal archives, both engines' tables 14 words a bucket;
+     12b, force_wide on phase 5's reads: a program-cache miss with one
+     round called (the wide-row probe inside the graphed round), round
+     trip byte-exact, launches equal to the rounds run, rounds and
+     archive printed beside phase 5's; 12c, the entry points
+     (spring_tpu_torch/entry.py): entry()'s round on the card equal to
+     the same round on the CPU, state and emissions, one launch of the
+     fused kernel; 12d, dryrun_multichip over NCCL on the largest power
+     of two of ranks (up to 4) that the visible cards give, one card a
+     rank: every read placed once, every rank's emissions equal, one
+     launch a round run on every rank; 12e, phase 10's 2M reads with
+     CompressOptions(stager=False): rows not staged, the prewarm run, the
+     archive byte-equal to phase 10's.
 Every engine run on the card (phases 4-11) runs its flushes on the flush
 runner (spring_tpu_torch/reorder/engine.py) from the program cache
 (spring_tpu_torch/ops/graphs.py): on a miss the first round called, then
@@ -91,7 +106,13 @@ capture+instantiate seconds, the graph pool, ms a round, engine seconds
 and the cache's bytes; a run with a second round called, a round or a
 compaction not replayed (but a miss's first compaction), a launch count
 other than the rounds run, or a capture on a hit fails. Launch counts and
-collectives are counted at each replay of a graph that holds them.
+collectives are counted at each replay of a graph that holds them. Second
+chance's and stitching's matchers run their loop over row chunks of one
+shape as one CUDA graph when it has more than one chunk
+(ops/graphs.py::ShapeLoop; phase 4 lowers the chunk so that both do,
+card against CPU); phases 4, 5, 10 and 12b print each matcher's loops,
+iterations, captures, replays, capture seconds and pool bytes, and a
+loop whose iterations after the first were not all replayed fails.
 Then one JSON line of kernel results (launches summed over phases 5-11,
 each entry's device time beside its bound on this card) and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
@@ -468,6 +489,21 @@ def need_graphs(what: str, stats: dict, replays: int = 1,
             f"{stats}")
 
 
+def need_loops(what: str, loops: dict, replayed: bool = False) -> None:
+    """The matchers' loops on the card (ops/graphs.py::LOOP_STATS): a
+    loop of one chunk calls it, a loop of more captures once and replays
+    every chunk after the first, so replays = iterations - loops and
+    captures <= loops; ``replayed`` asks for a replay in every matcher."""
+    for name, st in loops.items():
+        if (st["replays"] != st["iterations"] - st["loops"]
+                or st["captures"] > st["loops"]
+                or (replayed and not st["replays"])):
+            raise AssertionError(f"{what}: the {name} loops were not "
+                                 f"replayed as one graph each: {loops}")
+    if replayed and set(loops) != {"second_chance_match", "stitch_match"}:
+        raise AssertionError(f"{what}: want both matchers' loops; {loops}")
+
+
 def zero_counts(kernels) -> None:
     """Set every wrapper's launch count to 0."""
     for name in KERNEL_NAMES:
@@ -598,6 +634,138 @@ def tuning_phase(tmp, fq_small, fq, single, on_card, need_launches, card):
     os.remove(out)
 
 
+def last_phase(tmp, fq_small, fq, fq_large, a_large, single, on_card,
+               need_launches, card, total):
+    """Phase 12: force_wide at 16,384 reads card against CPU and at 1M
+    reads, entry()'s round card against CPU, dryrun_multichip over the
+    visible cards, and phase 10's reads without the row stager. fq_small,
+    fq and fq_large are phases 4, 5 and 10's inputs, a_large phase 10's
+    archive; single holds phase 5's numbers; on_card and need_launches
+    are main()'s, total its launch counts."""
+    import torch
+    from spring_tpu_torch import api, entry
+    from spring_tpu_torch.ops import graphs, kernels
+    from spring_tpu_torch.pipeline import short_mode
+    from spring_tpu_torch.reorder import dictionary as dct
+    from spring_tpu_torch.reorder import engine
+
+    wide = api.CompressOptions(num_threads=THREADS, verbose=False,
+                               engine=dict(force_wide=True))
+
+    def need_wide(what, stats):
+        if stats["dict_row_words"] != dct.WIDE_WORDS:
+            raise AssertionError(f"{what}: dictionary rows of "
+                                 f"{stats['dict_row_words']} words, want "
+                                 f"the wide {dct.WIDE_WORDS}")
+
+    # ---- 12a: the small set, card against CPU
+    a_gpu = os.path.join(tmp, "wide.gpu.stpu")
+    a_cpu = os.path.join(tmp, "wide.cpu.stpu")
+    secs, launches, stats = on_card([fq_small], a_gpu, wide)
+    api.compress([fq_small], a_cpu, wide, device="cpu")
+    same_bytes(a_gpu, a_cpu, "12a: force_wide 16k-read archive, card "
+               "against CPU")
+    need_wide("12a on the card", stats)
+    need_wide("12a on the CPU", engine.LAST_RUN_STATS)
+    need_launches("12a", launches, stats)
+    log(f"[wide] 12a {N_SMALL} reads, force_wide: card and CPU archives "
+        f"byte-equal ({os.path.getsize(a_gpu)} bytes); card compress "
+        f"{secs:.3f} s; verify_rows launches {launches}; engine: "
+        f"{engine_line(stats)}")
+    for f in (a_gpu, a_cpu):
+        os.remove(f)
+
+    # ---- 12b: phase 5's reads with wide rows
+    arc = os.path.join(tmp, "wide.stpu")
+    out = os.path.join(tmp, "wide.fastq")
+    torch.cuda.reset_peak_memory_stats()
+    secs, launches, stats = on_card([fq], arc, wide)
+    peak = torch.cuda.max_memory_allocated()
+    api.decompress(arc, [out], num_threads=THREADS, verbose=False)
+    same_bytes(fq, out, "12b: force_wide 1M-read round trip")
+    need_wide("12b", stats)
+    need_launches("12b", launches, stats)
+    if stats["program_cache"] != "miss" or stats["eager_rounds"] != 1:
+        raise AssertionError("12b: want a program-cache miss (the row "
+                             "format is a key) with one round called; "
+                             f"engine {stats}")
+    log(f"[wide] 12b {N_READS} reads, force_wide: compress {secs:.3f} s = "
+        f"{N_READS / secs:.1f} reads/s; round trip byte-exact; archive "
+        f"{os.path.getsize(arc)} bytes (phase 5: {single['archive']}); "
+        f"rounds {stats['rounds']} ({stats['rounds_run']} run; phase 5: "
+        f"{single['rounds']}); unmatched fraction "
+        f"{stats['unmatched_frac']} (phase 5: {single['unmatched']}); "
+        f"engine {stats['flush_wall_s']} s (phase 5: {single['engine_s']}); "
+        f"peak device memory {peak} bytes; verify_rows launches "
+        f"{launches}; on {card}")
+    log(f"[wide] 12b stages_s {json.dumps(short_mode.LAST_STAGE_SECONDS)}")
+    log(f"[wide] 12b matcher loops {json.dumps(graphs.LOOP_STATS)}")
+    log(f"[wide] 12b engine: {engine_line(stats)}")
+    for f in (arc, out):
+        os.remove(f)
+
+    # ---- 12c: entry()'s round, card against CPU
+    zero_counts(kernels)
+    fn, args = entry.entry("cuda")
+    torch.cuda.synchronize()
+    t = time.time()
+    new, emit = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.time() - t
+    counts = read_counts(kernels, "verify_rows")
+    fn_c, args_c = entry.entry("cpu")
+    new_c, emit_c = fn_c(*args_c)
+    if not torch.equal(emit.cpu(), emit_c):
+        raise AssertionError("12c: entry()'s round emits other rows on "
+                             "the card than on the CPU")
+    for k, v in new_c.items():
+        if not torch.equal(new[k].cpu(), v):
+            raise AssertionError(f"12c: entry()'s round state {k} differs "
+                                 "between card and CPU")
+    if counts["verify_rows"] != 1:
+        raise AssertionError(f"12c: one round, {counts} launches")
+    total["verify_rows"] += 1
+    log(f"[entry] 12c entry()'s round ({entry.N_READS} reads of "
+        f"{entry.READ_LEN} bases): state and emissions equal card and CPU "
+        f"({int((emit[:, :, 0] >= 0).sum())} rows emitted); one verify_rows "
+        f"launch; {1000 * secs:.3f} ms on the host clock (a first call); "
+        f"on {card}")
+
+    # ---- 12d: dryrun_multichip on the visible cards
+    cards = torch.cuda.device_count()
+    n = 4 if cards >= 4 else 2 if cards >= 2 else 1
+    t = time.time()
+    em, ranks = entry.dryrun_multichip(n, "cuda", timeout=600.0)
+    for r in ranks:
+        if r["launches"] != r["rounds_run"]:
+            raise AssertionError(f"12d: a rank launched masked_hamming_rows "
+                                 f"{r['launches']} times in "
+                                 f"{r['rounds_run']} rounds")
+        total["masked_hamming_rows"] += r["launches"]
+    log(f"[entry] 12d dryrun_multichip({n}) over NCCL: every read placed "
+        f"once ({len(em)} emissions), every rank's emissions equal; "
+        f"launches a rank {[r['launches'] for r in ranks]} in "
+        f"{[r['rounds_run'] for r in ranks]} rounds run; "
+        f"{time.time() - t:.1f} s with the ranks' start-up; on {card}")
+
+    # ---- 12e: phase 10's reads without the row stager
+    arc = os.path.join(tmp, "nostager.stpu")
+    opts = api.CompressOptions(num_threads=THREADS, verbose=False,
+                               stager=False)
+    secs, launches, stats = on_card([fq_large], arc, opts)
+    need_launches("12e", launches, stats)
+    if stats["staged_rows"] or stats.get("dict_prewarm_s") is None:
+        raise AssertionError(f"12e: want no staged rows and the prewarm; "
+                             f"engine {stats}")
+    same_bytes(a_large, arc, "12e: the 2M-read archive without the stager "
+               "against phase 10's")
+    log(f"[stager] 12e {N_LARGE} reads, stager off: archive byte-equal to "
+        f"phase 10's ({os.path.getsize(arc)} bytes); compress {secs:.3f} s; "
+        f"prewarm {stats['dict_prewarm_s']} s; verify_rows launches "
+        f"{launches}; engine: {engine_line(stats)}; on {card}")
+    os.remove(arc)
+
+
 def kernel_phases():
     """Phases 1-3: the card, the builds, every kernel entry against its
     plain version. Returns (card line, device name, kernel entries)."""
@@ -660,8 +828,9 @@ def main() -> int:
     card, kind, kres = kernel_phases()
     import torch
     from spring_tpu_torch import api, params
+    from spring_tpu_torch.encode import second_chance
     from spring_tpu_torch.io.container import ArchiveReader
-    from spring_tpu_torch.ops import kernels
+    from spring_tpu_torch.ops import graphs, kernels
     from spring_tpu_torch.parallel import multihost
     from spring_tpu_torch.pipeline import short_mode
     from spring_tpu_torch.reorder import engine
@@ -699,6 +868,11 @@ def main() -> int:
                                  f"in {stats['rounds_run']} rounds run")
         need_graphs(what, stats)
 
+    def loops_line() -> str:
+        return (f"{json.dumps(graphs.LOOP_STATS)} (matcher: loops, "
+                f"iterations, captures, replays, capture seconds, largest "
+                f"pool bytes)")
+
     opts = api.CompressOptions(num_threads=THREADS, verbose=False)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -709,17 +883,27 @@ def main() -> int:
         a_gpu = os.path.join(tmp, "gpu.stpu")
         a_cpu = os.path.join(tmp, "cpu.stpu")
         engine.LAST_RUN_STATS.clear()
-        t = time.time()
-        api.compress([fq2], a_gpu, opts, device="cuda")
-        torch.cuda.synchronize()
-        small_s = time.time() - t
-        stats = dict(engine.LAST_RUN_STATS)
-        api.compress([fq2], a_cpu, opts, device="cpu")
+        # chunks of 64 oriented rows: the matchers' loops replay their
+        # graphs here, where one chunk of the default size holds them all
+        default_chunk = second_chance.MATCH_CHUNK
+        second_chance.MATCH_CHUNK = 64
+        try:
+            t = time.time()
+            api.compress([fq2], a_gpu, opts, device="cuda")
+            torch.cuda.synchronize()
+            small_s = time.time() - t
+            stats = dict(engine.LAST_RUN_STATS)
+            loops = json.loads(json.dumps(graphs.LOOP_STATS))
+            api.compress([fq2], a_cpu, opts, device="cpu")
+        finally:
+            second_chance.MATCH_CHUNK = default_chunk
         same_bytes(a_gpu, a_cpu, "16k-read archive, card against CPU path")
         need_graphs("phase 4", stats, replays=2, compactions=1)
+        need_loops("phase 4", loops, replayed=True)
         log(f"[check] {N_SMALL}-read archive: card and CPU path byte-equal "
             f"(card compress {small_s:.3f} s); card engine: "
-            f"{engine_line(stats)}")
+            f"{engine_line(stats)}; matchers in chunks of 64 rows: "
+            f"{json.dumps(loops)}")
 
         # ---- phase 5: 1M SE reads, order-preserving
         fq = os.path.join(tmp, "in.fastq")
@@ -733,6 +917,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         comp_s, launches, stats = on_card([fq], arc, opts)
         peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
         stages = dict(short_mode.LAST_STAGE_SECONDS)
         t = time.time()
         api.decompress(arc, [out], num_threads=THREADS, verbose=False)
@@ -741,14 +926,17 @@ def main() -> int:
         log(f"[main] compress {comp_s:.3f} s = {N_READS / comp_s:.1f} "
             f"reads/s; decompress {dec_s:.3f} s; round trip byte-exact; "
             f"archive {os.path.getsize(arc)} bytes; peak device memory "
-            f"{peak} bytes")
+            f"{peak} bytes allocated, {reserved} reserved (the cached "
+            f"programs' graph pools are reserved)")
         log(f"[main] stages_s {json.dumps(stages)}")
         log(f"[main] device peak at each stage's end "
             f"{json.dumps(short_mode.LAST_STAGE_PEAK_BYTES)}")
         log(f"[main] engine {json.dumps(stats)}")
         log(f"[main] engine: {engine_line(stats)}; verify_rows launches "
             f"{launches} on {card}")
+        log(f"[main] matcher loops {loops_line()}")
         need_launches("the main path", launches, stats)
+        need_loops("the main path", graphs.LOOP_STATS)
         if stats["program_cache"] != "miss" or stats["eager_rounds"] != 1:
             raise AssertionError("the main path: want a program-cache miss "
                                  "(phase 4's shape differs) with one round "
@@ -756,7 +944,7 @@ def main() -> int:
         single = dict(archive=os.path.getsize(arc),
                       engine_s=stats["flush_wall_s"],
                       unmatched=stats["unmatched_frac"],
-                      rounds=stats["rounds"])
+                      rounds=stats["rounds"], stages=stages)
         for f in (arc, out):        # phase 8 compresses fq again
             os.remove(f)
 
@@ -985,9 +1173,14 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             secs, launches, stats = on_card([fq_large], arc, opts)
             peak = torch.cuda.max_memory_allocated()
+            reserved = torch.cuda.max_memory_reserved()
             need_launches(f"large call {k}", launches, stats)
             log(f"[large] call {k}: device peak at each stage's end "
                 f"{json.dumps(short_mode.LAST_STAGE_PEAK_BYTES)}")
+            log(f"[large] call {k}: stages_s "
+                f"{json.dumps(short_mode.LAST_STAGE_SECONDS)}")
+            log(f"[large] call {k}: matcher loops {loops_line()}")
+            need_loops(f"large call {k}", graphs.LOOP_STATS)
             calls.append((arc, secs, stats))
             log(f"[large] call {k}: compress {secs:.3f} s = "
                 f"{N_LARGE / secs:.1f} reads/s; rows staged "
@@ -995,7 +1188,8 @@ def main() -> int:
                 f"{stats.get('dict_prewarm_s')} s; engine "
                 f"{stats['flush_wall_s']} s; cached program "
                 f"{stats['cached_program_bytes']} bytes; peak device memory "
-                f"{peak} bytes; unmatched fraction "
+                f"{peak} bytes allocated, {reserved} reserved; unmatched "
+                f"fraction "
                 f"{stats['unmatched_frac']}; verify_rows launches {launches}; "
                 f"engine: {engine_line(stats)}; on {card}")
         (a1, _, s1), (a2, _, s2) = calls
@@ -1012,12 +1206,17 @@ def main() -> int:
         same_bytes(fq_large, out, "2M-read round trip")
         log(f"[large] the two archives byte-equal ({os.path.getsize(a2)} "
             f"bytes); round trip byte-exact")
-        for f in (fq_large, a1, a2, out):
+        for f in (a1, out):
             os.remove(f)
 
         # ---- phase 11: the engine's tuning paths
         tuning_phase(tmp, fq2, fq, single, on_card, need_launches, card)
-        os.remove(fq)
+
+        # ---- phase 12: wide rows, the entry, the stager switch
+        last_phase(tmp, fq2, fq, fq_large, a2, single, on_card,
+                   need_launches, card, total)
+        for f in (fq, fq_large, a2):
+            os.remove(f)
 
     def entry(name, launches):
         r = kres[name]

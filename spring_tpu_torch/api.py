@@ -26,7 +26,8 @@ __all__ = ["CompressOptions", "clear_program_cache", "compress",
 
 # the ReorderConfig fields that CompressOptions.engine may set
 ENGINE_KEYS = ("num_walkers", "shift_chunk", "accept_slots", "far_near",
-               "cap_per_round", "rebuild_fraction", "flush_rounds")
+               "cap_per_round", "rebuild_fraction", "flush_rounds",
+               "force_wide")
 
 
 @dataclass
@@ -52,6 +53,9 @@ class CompressOptions:
     # short mode: contigs of fewer reads join the leftover pool
     min_contig_reads: int = P.MIN_CONTIG_READS
     stitch: bool = True              # stitch overlapping contigs
+    # short mode, inputs of short_mode.STAGER_MIN_READS reads and up: copy
+    # the parsed rows to the device while the parse runs
+    stager: bool = True
 
 
 class _DiscardWriter:
@@ -118,7 +122,8 @@ def compress(files: list[str], output: str,
     short = dict(engine=getattr(opts, "engine", {}),
                  min_contig_reads=getattr(opts, "min_contig_reads",
                                           P.MIN_CONTIG_READS),
-                 stitch=getattr(opts, "stitch", True))
+                 stitch=getattr(opts, "stitch", True),
+                 stager=getattr(opts, "stager", True))
     world = None
     # an options object of spring_tpu's shape, without the field, is taken
     if getattr(opts, "dist", False) and not opts.long_mode:

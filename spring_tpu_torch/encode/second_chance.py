@@ -7,6 +7,10 @@ with an N-masked packed Hamming distance (an N lane forces a mismatch);
 ambiguity resolves by a per-read min over (pos << 1 | rc). Reference
 analog: the encoder's singleton re-alignment, Hamming <= THRESH_ENCODER
 (src/encoder.h:242-351).
+
+On a card the matcher's loop over row chunks, all of one shape, runs as
+one captured CUDA graph (ops/graphs.py::ShapeLoop) when it has more than
+one chunk: the counterpart of the JAX package's jitted _match_reads.
 """
 from __future__ import annotations
 
@@ -15,12 +19,13 @@ import torch
 
 from .. import params as P
 from ..io import packing
-from ..ops import bits
+from ..ops import bits, graphs
 from ..reorder import dictionary as dct
 
 _BIG = 2**31 - 1
 CANDS = 8
 _PAD = 16        # leading pad bases so window word -1 is addressable
+MATCH_CHUNK = 1 << 17    # oriented rows a matcher call (a power of two)
 
 
 def windows_for(max_len: int) -> tuple[int, ...]:
@@ -152,18 +157,28 @@ def align_leftovers_packed(seq_codes: np.ndarray, pk: np.ndarray,
         ex_j = torch.as_tensor(np.concatenate([ex_p, ex_p]), device=dev)
     rc_j = torch.cat([torch.zeros(k2, dtype=torch.int32, device=dev),
                       torch.ones(k2, dtype=torch.int32, device=dev)])
-    # row chunks bound the candidate-row intermediates
-    CH = min(2 * k2, 1 << 17)
+    # row chunks bound the candidate-row intermediates; k2 and the chunk
+    # are powers of two, so every chunk has one shape. Contig stitching is
+    # the caller that passes exclude.
+    CH = min(2 * k2, MATCH_CHUNK)
+    name = "second_chance_match" if exclude is None else "stitch_match"
 
     def match_fold(btab, pos_bins, best):
-        for c0 in range(0, 2 * k2, CH):
-            b = _match_reads(
-                seq_j, btab, pos_bins, rows_j[c0:c0 + CH], total, W,
-                thresh, windows,
-                None if ex_j is None else ex_j[c0:c0 + CH],
-                rc_j[c0:c0 + CH])
-            np.minimum(best[c0:c0 + CH], b.cpu().numpy(),
-                       out=best[c0:c0 + CH])
+        def match(rows, rcbit, *ex):
+            return _match_reads(seq_j, btab, pos_bins, rows, total, W,
+                                thresh, windows, ex[0] if ex else None,
+                                rcbit)
+
+        starts = range(0, 2 * k2, CH)
+        loop = graphs.ShapeLoop(name, match, len(starts), dev)
+        try:
+            for c0 in starts:
+                ex = () if ex_j is None else (ex_j[c0:c0 + CH],)
+                b = loop(rows_j[c0:c0 + CH], rc_j[c0:c0 + CH], *ex)
+                np.minimum(best[c0:c0 + CH], b.cpu().numpy(),
+                           out=best[c0:c0 + CH])
+        finally:
+            loop.close()
         return best
 
     best2 = np.full(2 * k2, _BIG, np.int32)
@@ -185,3 +200,24 @@ def align_leftovers_packed(seq_codes: np.ndarray, pk: np.ndarray,
     out_pos[placed] = (best[placed] >> 1).astype(np.int64)
     out_rc[placed] = (best[placed] & 1).astype(np.uint8)
     return out_pos, out_rc, out_pos >= 0
+
+
+def align_leftovers(seq_codes: np.ndarray, codes: np.ndarray,
+                    lengths: np.ndarray, thresh: int = P.THRESH_ENCODER,
+                    device="cuda") -> tuple[np.ndarray, np.ndarray,
+                                            np.ndarray]:
+    """Byte-codes wrapper over align_leftovers_packed: (n, L) uint8 codes
+    (N = packing.N) are packed and their N-mask planes made here."""
+    lengths = np.asarray(lengths, np.int32)
+    pk = packing.pack_codes(codes)
+    ind = (codes == packing.N).astype(np.uint8)
+    nm_f = packing.pack_codes(ind)
+    L = codes.shape[1] if codes.ndim == 2 and codes.shape[1] else 1
+    src = lengths[:, None].astype(np.int64) - 1 - np.arange(L)
+    ind_r = np.where(
+        src >= 0,
+        np.take_along_axis(ind, np.clip(src, 0, L - 1), axis=1),
+        0).astype(np.uint8)
+    nm_r = packing.pack_codes(ind_r)
+    return align_leftovers_packed(seq_codes, pk, nm_f, nm_r, lengths,
+                                  thresh, device=device)

@@ -12,6 +12,7 @@ value in [0, 2^32), ``i32`` narrows such a value back to the pattern.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 BASES_PER_WORD = 16
@@ -93,6 +94,54 @@ def pack(codes: torch.Tensor) -> torch.Tensor:
                               device=codes.device)
     # lanes are disjoint, so the sum is the OR
     return i32((lanes << shifts).sum(dim=-1))
+
+
+def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per-read base-mismatch count between two packed arrays (..., W):
+    the two XOR bits of each 2-bit lane ORed into its low bit, then a
+    popcount. Padding lanes must be equal in both inputs."""
+    d = a ^ b
+    return popcount32((d | srl(d, 1)) & ODD_MASK).sum(dim=-1).to(
+        torch.int32)
+
+
+def mismatch_mask(a_codes: torch.Tensor, b_codes: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Elementwise mismatch over code arrays, False where not ``valid``."""
+    return (a_codes != b_codes) & valid
+
+
+def revcomp_codes(codes: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse-complement padded code rows within their own lengths:
+    out[..., j] = 3 - codes[..., len-1-j] for j < len, 0 beyond."""
+    L = codes.shape[-1]
+    idx = (lengths[..., None].to(torch.int64) - 1
+           - torch.arange(L, device=codes.device))
+    gathered = torch.take_along_dim(codes, idx.clamp(min=0), dim=-1)
+    return torch.where(idx >= 0, 3 - gathered, 0).to(codes.dtype)
+
+
+def extract_key(codes: torch.Tensor, start, width: int) -> torch.Tensor:
+    """Pack ``width`` <= 16 consecutive base codes from ``start`` (an int,
+    clamped into the row as a dynamic slice is, or a per-row tensor,
+    each index clipped into the row) into one int32 key pattern."""
+    if width > BASES_PER_WORD:
+        raise ValueError(f"key width {width} > {BASES_PER_WORD}")
+    L = codes.shape[-1]
+    offs = torch.arange(width, device=codes.device)
+    if isinstance(start, int):
+        s = min(max(start, 0), L - width)
+        window = codes[..., s:s + width]
+    else:
+        idx = (start[..., None].to(torch.int64) + offs).clamp(0, L - 1)
+        window = torch.take_along_dim(codes, idx, dim=-1)
+    return i32((window.to(torch.int64) << (2 * offs)).sum(dim=-1))
+
+
+def pack_np(codes: np.ndarray) -> np.ndarray:
+    """Host-side pack, same layout (delegates to io.packing)."""
+    from ..io.packing import pack_codes
+    return pack_codes(codes)
 
 
 def _word_shift_left(pk: torch.Tensor, q: int) -> torch.Tensor:

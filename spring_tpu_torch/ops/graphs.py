@@ -1,5 +1,5 @@
-"""CUDA graphs whose counted events count again at every replay, and the
-process's cache of flush programs.
+"""CUDA graphs whose counted events count again at every replay, the
+process's cache of flush programs, and loops of one shape run as a graph.
 
 The kernel wrappers count their launches (ops/kernels.py) and a
 ``multihost.World`` its collectives through ``count``. Outside a capture
@@ -15,8 +15,15 @@ thing the runner's steps read, and the next engine of that key binds its
 inputs into the same buffers and replays the same graphs. A slot (one a
 device and rank) holds one program: a different key frees the old
 program, its buffers and its graph pool, before the new one is built.
+
+``ShapeLoop`` runs a loop that calls one function many times within one
+call on arguments of one shape (second chance's matcher over its row
+chunks) as one captured graph, replayed for every iteration after the
+first. It lives only for that loop: nothing of it is cached.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -43,22 +50,37 @@ def enabled(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+_capture_streams: dict = {}     # device -> the side stream captures use
+
+
 class Graph:
-    """``body()`` captured once into a CUDA graph on ``device``
-    (torch.cuda.graph, default capture mode). What ``body`` returns are
-    the graph's static outputs: every replay rewrites them. Graphs given
-    one ``pool`` share their temporaries, and must then be replayed one
-    after the other on one stream. A capture that fails raises."""
+    """``body()`` captured once into a CUDA graph on ``device``, on a side
+    stream, in the global capture mode (as torch.cuda.graph captures, but
+    without its device synchronize and its emptying of the device and
+    pinned-host allocator caches: a caller that wants them makes them).
+    What ``body`` returns are the graph's static outputs: every replay
+    rewrites them. Graphs given one ``pool`` share their temporaries, and
+    must then be replayed one after the other on one stream. A capture
+    that fails raises."""
 
     def __init__(self, body, device, pool=None):
         global _tally
+        dev = torch.device(device)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        stream = _capture_streams.get(dev)
+        if stream is None:
+            stream = _capture_streams[dev] = torch.cuda.Stream(dev)
         self.graph = torch.cuda.CUDAGraph()
         tally = []
         _tally = tally
         try:
-            with torch.cuda.device(device), \
-                    torch.cuda.graph(self.graph, pool=pool):
-                self.outputs = body()
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                self.graph.capture_begin(*(() if pool is None else (pool,)))
+                try:
+                    self.outputs = body()
+                finally:
+                    self.graph.capture_end()
         finally:
             _tally = None
         self.tally = tally
@@ -143,3 +165,84 @@ def _free(slot: tuple) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
+
+
+# ---------------- loops of one shape ----------------
+
+# per loop name, since the last clear (compress_short clears it): loops
+# run, their iterations, the loops captured, the iterations replayed, the
+# capture seconds and the largest graph pool's bytes
+LOOP_STATS: dict = {}
+
+
+class ShapeLoop:
+    """``fn(*var)`` for a loop that calls it ``n`` times, each time on
+    tensors ``var`` of one shape and dtype: the counterpart of a jitted
+    JAX function that one loop calls again and again. On a card, with
+    n > 1, the first iteration calls ``fn`` (its kernels load) and then
+    captures it over copies of that iteration's ``var``; each later
+    iteration copies its ``var`` into them and replays, and gets the
+    graph's static outputs, which the next iteration rewrites. The
+    tensors ``fn`` closes over are read in place: they must stay alive
+    and unchanged until ``close()``. One iteration, or the CPU, calls
+    ``fn`` every time: a graph replayed no time would only add its
+    capture. A capture that fails raises."""
+
+    def __init__(self, name: str, fn, n: int, device):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.graphed = enabled(self.device) and n > 1
+        self._graph = None
+        self._var = ()
+        self.stats = LOOP_STATS.setdefault(name, dict(
+            loops=0, iterations=0, captures=0, replays=0, capture_s=0.0,
+            pool_bytes=0))
+        self.stats["loops"] += 1
+
+    def __call__(self, *var: torch.Tensor):
+        st = self.stats
+        st["iterations"] += 1
+        if not self.graphed:
+            return self.fn(*var)
+        if self._graph is None:
+            out = self.fn(*var)
+            self._capture(var)
+            return out
+        for buf, v in zip(self._var, var):
+            if v.shape != buf.shape or v.dtype != buf.dtype:
+                raise ValueError(f"loop of one shape: an argument of "
+                                 f"{v.dtype}{tuple(v.shape)} for a buffer "
+                                 f"of {buf.dtype}{tuple(buf.shape)}")
+            buf.copy_(v)
+        self._graph.replay()
+        st["replays"] += 1
+        return self._graph.outputs
+
+    def _capture(self, var: tuple) -> None:
+        """Capture ``fn`` over copies of ``var``; capture_s is its host
+        time, instantiation included, and pool_bytes what the device's
+        reserved memory grew by (the graph's private pool takes new
+        segments; the allocator's cache is left as it is, for the stages
+        after this one)."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+        self._var = tuple(v.clone() for v in var)
+        reserved = torch.cuda.memory_reserved(dev) if cuda else 0
+        t = time.perf_counter()
+        with torch.profiler.record_function("stpu::capture"):
+            self._graph = Graph(lambda: self.fn(*self._var), dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        st = self.stats
+        st["captures"] += 1
+        st["capture_s"] += time.perf_counter() - t
+        if cuda:
+            st["pool_bytes"] = max(st["pool_bytes"],
+                                   torch.cuda.memory_reserved(dev) - reserved)
+
+    def close(self) -> None:
+        """Free the graph, its pool and the buffers."""
+        if self._graph is not None:
+            self._graph.reset()
+            self._graph = None
+        self._var = ()

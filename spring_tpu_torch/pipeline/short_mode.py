@@ -37,6 +37,7 @@ from ..encode import streams as st
 from ..io import fastq, fastq_native, packing
 from ..io.container import ArchiveReader, ArchiveWriter
 from ..io.ids import check_id_pattern, find_id_pattern, modify_id
+from ..ops import graphs
 from ..reorder import dictionary as dct
 from ..reorder import engine as eng
 from . import qualstream
@@ -124,7 +125,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
                    device="cuda", _scanned=None, world=None,
                    engine: dict | None = None,
                    min_contig_reads: int = P.MIN_CONTIG_READS,
-                   stitch: bool = True) -> None:
+                   stitch: bool = True, stager: bool = True) -> None:
     """``world`` (a parallel.multihost.World) routes the reorder through
     the distributed engine. Every rank of it makes this same call on the
     same input; rank 0 goes on to write the archive, the other ranks
@@ -136,12 +137,15 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     knobs do; on the distributed engine only rebuild_fraction and
     flush_rounds apply (DistConfig), as in the JAX package, and the
     others are ignored. Contigs of fewer than ``min_contig_reads`` reads
-    join the leftover pool; ``stitch`` False skips contig stitching."""
+    join the leftover pool; ``stitch`` False skips contig stitching.
+    ``stager`` False copies the rows of a large input to the device only
+    when the engine starts, not while the parse runs."""
     engine_cfg = dict(engine or {})
     primary = world is None or world.rank == 0
     if _scanned is None:    # a shard adds its stages to the outer call's
         LAST_STAGE_SECONDS.clear()
         LAST_STAGE_PEAK_BYTES.clear()
+        graphs.LOOP_STATS.clear()
     _t = time.time()
     card = torch.device(device).type == "cuda"
 
@@ -178,7 +182,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         if _scanned is not None:
             raise RuntimeError("shard slicing exceeded the read cap")
         knobs = dict(engine=engine_cfg, min_contig_reads=min_contig_reads,
-                     stitch=stitch)
+                     stitch=stitch, stager=stager)
         _compress_sharded(files, writer, cp, num_threads, bufs, infos, cap,
                           device, world, knobs)
         return
@@ -242,10 +246,10 @@ def compress_short(files: list[str], writer: ArchiveWriter,
 
     # the packed rows go to the device while the next segment parses
     # (one input file: a second file's offsets would break the tail pad)
-    stager = None
-    if big and len(files) == 1:
-        stager = eng.DeviceRowStager(n, W, fastq_native._SEG_RECORDS,
-                                     device)
+    row_stager = None
+    if big and len(files) == 1 and stager:
+        row_stager = eng.DeviceRowStager(n, W, fastq_native._SEG_RECORDS,
+                                         device)
 
     exc_parts = []
     off = 0
@@ -265,7 +269,8 @@ def compress_short(files: list[str], writer: ArchiveWriter,
                     idlens[off:off + info.n],
                     fasta=cp.fasta_input, num_threads=num_threads,
                     qual_sink=sink,
-                    row_sink=stager.feed if stager is not None else None)
+                    row_sink=(row_stager.feed if row_stager is not None
+                              else None))
                 if len(exc):
                     exc[:, 0] += off
                     exc_parts.append(exc)
@@ -407,8 +412,8 @@ def compress_short(files: list[str], writer: ArchiveWriter,
                   seq_codes[None, :], np.array([len(seq_codes)])))
 
     use_engine = len(clean_rids) > 0 and maxlen >= 32
-    if stager is not None and not use_engine:
-        stager.release()        # no engine reads the staged rows
+    if row_stager is not None and not use_engine:
+        row_stager.release()    # no engine reads the staged rows
     if use_engine:
         c_len = lengths[clean_rids]
         if world is not None:
@@ -426,12 +431,13 @@ def compress_short(files: list[str], writer: ArchiveWriter,
                 packed_buf, lengths,
                 eng.ReorderConfig(max_readlen=maxlen, **engine_cfg),
                 select=clean_rids, device=device,
-                rows_dev=stager.rows() if stager is not None else None)
-        if stager is not None:
+                rows_dev=(row_stager.rows() if row_stager is not None
+                          else None))
+        if row_stager is not None:
             # the engine holds the table now; run() drops it once the
             # padded row table is assembled
-            stager.release()
-            stager = None
+            row_stager.release()
+            row_stager = None
         mark("dict_build")
         emissions = engine.run(progress=_progress if primary else None)
         if prewarm is not None:
@@ -720,8 +726,8 @@ def _slice_scan(info, a: int, b: int, stride: int):
 def _compress_sharded(files, writer, cp, num_threads, bufs, infos,
                       cap: int, device, world=None, knobs=None) -> None:
     """Compress super-shards of at most ``cap`` reads each into one
-    archive; ``knobs`` are compress_short's engine, min_contig_reads and
-    stitch arguments."""
+    archive; ``knobs`` are compress_short's engine, min_contig_reads,
+    stitch and stager arguments."""
     stride = fastq_native.ckpt_stride()
     nfiles = len(files)
     per_file = infos[0].n

@@ -1,6 +1,7 @@
-"""Read k-mer dictionaries built and probed on the device (PyTorch).
+"""Read k-mer dictionaries: built on the host or on the device, probed on
+the device (PyTorch).
 
-Port of the device half of spring_tpu/reorder/dictionary.py. A dictionary
+Port of spring_tpu/reorder/dictionary.py. A dictionary
 is a bucketed open hash over 16-base (one 32-bit word) window keys: each
 bucket holds SLOTS entries of (16-bit key tag, bin start, bin count), and
 the bins are CSR runs of read ids sorted by h = key * _HASH_MULT, so the
@@ -8,11 +9,14 @@ bucket id h >> shift is monotonic along the sorted order. Reference
 analog: the BooPHF + CSR bins of bbhashdict (src/bitset_util.h:74-221).
 
 Tables are int32 tensors holding uint32 bit patterns (see ops/bits.py);
-hash arithmetic runs in int64 on values in [0, 2^32).
+hash arithmetic runs in int64 on values in [0, 2^32). The host builders
+(build_hash_dicts, build_hash_dicts_packed) stay numpy, as in the JAX
+package, and put their tables on an explicit device.
 """
 from __future__ import annotations
 
 import functools
+import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,8 +30,9 @@ _HASH_MULT = 0x9E3779B1
 _HASH_MULT_INV = 0x0E8B2F51   # modular inverse mod 2^32
 _TAG_MULT = 0x85EBCA6B
 # compact row: SLOTS/2 words of packed 16-bit tags + SLOTS words of
-# (start << SC_SHIFT | min(count, SC_CMASK)); tables past 2^27 entries use
-# the wide row: full 32-bit starts + a plane of 8-bit counts
+# (start << SC_SHIFT | min(count, SC_CMASK)); tables past 2^27 entries, or
+# any table with force_wide, use the wide row: full 32-bit starts + a
+# plane of 8-bit counts
 COMPACT_WORDS = SLOTS // 2 + SLOTS
 WIDE_WORDS = SLOTS // 2 + SLOTS + SLOTS // 4
 SC_SHIFT = 5
@@ -58,14 +63,148 @@ def default_windows(max_len: int) -> list[DictSpec]:
     return []
 
 
+def _window_keys_np(codes: np.ndarray, start: int) -> np.ndarray:
+    """16-base window keys (uint32) of (n, L) base-code rows."""
+    window = codes[:, start:start + KEY_BASES].astype(np.uint32)
+    shifts = (2 * np.arange(KEY_BASES, dtype=np.uint32))[None, :]
+    return np.bitwise_or.reduce(window << shifts, axis=1)
+
+
+def _window_keys_packed(packed: np.ndarray, start: int) -> np.ndarray:
+    """16-base (one uint32) window keys straight from packed 2-bit rows."""
+    w0, b = divmod(start, 16)
+    lo = packed[:, w0] >> np.uint32(2 * b)
+    if b:
+        lo = lo | (packed[:, w0 + 1] << np.uint32(32 - 2 * b))
+    return lo.astype(np.uint32)
+
+
 def table_buckets(n_keys: int) -> int:
     """Bucket count for n_keys (pow2, ~2 slots per key), capped at 2^25."""
     b = max(1 << int(max(4 * n_keys // SLOTS, 1) - 1).bit_length(), 64)
     return min(b, 1 << 25)
 
 
-def _use_wide(n_entries: int) -> bool:
-    return n_entries > MAX_COMPACT_ENTRIES
+def _use_wide(n_entries: int, force_wide: bool = False) -> bool:
+    """Wide rows past the compact row's 2^27 starts, or when asked for
+    (ReorderConfig.force_wide: the wide-row probe below that size)."""
+    return force_wide or n_entries > MAX_COMPACT_ENTRIES
+
+
+@dataclass
+class HashDict:
+    """One hash dictionary built on the host."""
+    btab: torch.Tensor     # (S, COMPACT_WORDS or WIDE_WORDS) int32 rows
+                           # (or classic (S, 3*SLOTS) [keys|starts|counts])
+    rids: torch.Tensor     # (n,) int32 CSR payload, bins sorted by
+                           # h = key * _HASH_MULT (bucket ids monotonic)
+    start: int             # window start
+    keys_sorted: object = None   # host np: original keys in bin order
+
+    @property
+    def nbuckets(self) -> int:
+        return int(self.btab.shape[0])
+
+
+def build_hash_dicts(codes: np.ndarray, lengths: np.ndarray,
+                     windows: list[DictSpec] | None = None,
+                     pad_to_pow2: bool = True, compact: bool = True,
+                     device="cuda", force_wide: bool = False
+                     ) -> list[HashDict]:
+    """Host build from (n, L) base-code rows; tables on ``device``."""
+    if windows is None:
+        windows = default_windows(codes.shape[1])
+    return _build_hash_dicts(
+        lambda ok, start: _window_keys_np(codes[ok], start),
+        lengths, windows, pad_to_pow2, compact, device, force_wide)
+
+
+def build_hash_dicts_packed(packed: np.ndarray, lengths: np.ndarray,
+                            windows: list[DictSpec],
+                            pad_to_pow2: bool = True, compact: bool = True,
+                            device="cuda", force_wide: bool = False
+                            ) -> list[HashDict]:
+    """build_hash_dicts from packed 2-bit rows (no codes matrix)."""
+    return _build_hash_dicts(
+        lambda ok, start: _window_keys_packed(packed[ok], start),
+        lengths, windows, pad_to_pow2, compact, device, force_wide)
+
+
+def _build_hash_dicts(keyfn, lengths: np.ndarray, windows: list[DictSpec],
+                      pad_to_pow2: bool = True, compact: bool = True,
+                      device="cuda", force_wide: bool = False
+                      ) -> list[HashDict]:
+    """The host build of every window: the same tables, bit for bit, as
+    the device build of the same reads (rows sorted by h, bins found by
+    np.unique, the all-padding sentinel bin dropped, at most SLOTS bins a
+    bucket; the others are dropped, and counted)."""
+    dev = torch.device(device)
+    out = []
+    for spec in windows:
+        ok = lengths >= spec.end
+        rids = np.nonzero(ok)[0].astype(np.int32)
+        keys = keyfn(ok, spec.start)
+        h = (keys * np.uint32(_HASH_MULT)).astype(np.uint32)
+        order = np.argsort(h, kind="stable")
+        keys, rids, h = keys[order], rids[order], h[order]
+        if pad_to_pow2:
+            n = max(1 << max(len(keys) - 1, 1).bit_length(), 64)
+            keys = np.concatenate(
+                [keys, np.full(n - len(keys), 0xFFFFFFFF, np.uint32)])
+            rids = np.concatenate(
+                [rids, np.full(n - len(rids), -1, np.int32)])
+            h = np.concatenate(
+                [h, np.full(n - len(h), 0xFFFFFFFF, np.uint32)])
+        uh, starts, counts = np.unique(h, return_index=True,
+                                       return_counts=True)
+        ukeys = keys[starts]
+        # drop the sentinel bin (rid -1 padding)
+        if len(uh) and uh[-1] == 0xFFFFFFFF and rids[starts[-1]] == -1:
+            uh, starts, counts = uh[:-1], starts[:-1], counts[:-1]
+            ukeys = ukeys[:-1]
+        S = table_buckets(len(uh))
+        shift = 32 - _log2(S)
+        bkey = np.zeros((S, SLOTS), np.uint32)
+        bstart = np.zeros((S, SLOTS), np.int32)
+        bcount = np.zeros((S, SLOTS), np.int32)
+        # buckets are sorted; rank = index - first index of the bucket
+        b = (uh >> np.uint32(shift)).astype(np.int64)
+        first = np.concatenate([[True], b[1:] != b[:-1]])
+        grp = np.cumsum(first) - 1
+        first_idx = np.nonzero(first)[0]
+        rank = np.arange(len(b)) - first_idx[grp]
+        fits = rank < SLOTS
+        bi, si = b[fits], rank[fits]
+        bkey[bi, si] = ukeys[fits]
+        bstart[bi, si] = starts[fits]
+        bcount[bi, si] = counts[fits]
+        dropped = int((~fits).sum())
+        if compact:
+            t8 = ((bkey * np.uint32(_TAG_MULT)) >> np.uint32(16)) \
+                & np.uint32(0xFFFF)
+            tagw = t8[:, 0::2] | (t8[:, 1::2] << np.uint32(16))
+            if _use_wide(len(keys), force_wide):
+                c8 = np.minimum(bcount, 255).astype(np.uint32)
+                countw = (c8[:, 0::4] | (c8[:, 1::4] << np.uint32(8))
+                          | (c8[:, 2::4] << np.uint32(16))
+                          | (c8[:, 3::4] << np.uint32(24)))
+                btab = np.concatenate(
+                    [tagw, bstart.astype(np.uint32), countw], axis=1)
+            else:
+                scw = (bstart.astype(np.uint32) << np.uint32(SC_SHIFT)) \
+                    | np.minimum(bcount, SC_CMASK).astype(np.uint32)
+                btab = np.concatenate([tagw, scw], axis=1)
+        else:
+            if dropped:
+                print(f"[dict] {dropped}/{len(uh)} keys overflowed the hash "
+                      "table and were dropped", file=sys.stderr)
+            btab = np.concatenate([bkey, bstart.view(np.uint32),
+                                   bcount.view(np.uint32)], axis=1)
+        out.append(HashDict(
+            btab=torch.as_tensor(btab.view(np.int32), device=dev),
+            rids=torch.as_tensor(rids, device=dev), start=spec.start,
+            keys_sorted=keys))
+    return out
 
 
 @dataclass
@@ -229,17 +368,34 @@ def _hash_build_core(keys: torch.Tensor, ok: torch.Tensor, S: int,
 
 
 def build_hash_dicts_device(rows: torch.Tensor, n_real: int,
-                            windows: list[DictSpec]) -> list[DeviceDict]:
+                            windows: list[DictSpec],
+                            force_wide: bool = False) -> list[DeviceDict]:
     """Build all dictionaries on the device from engine-layout rows."""
     Np = int(rows.shape[0])
     S = table_buckets(Np)
     out = []
     for spec in windows:
         btab, keys_s, rids_s, dropped = _build_hash_dict_dev(
-            rows, n_real, spec.start, S, _use_wide(Np))
+            rows, n_real, spec.start, S, _use_wide(Np, force_wide))
         out.append(DeviceDict(btab=btab, rids=rids_s, keys_dev=keys_s,
                               start=spec.start, dropped=dropped))
     return out
+
+
+def pairs_from_rids_stacked(rids_all: torch.Tensor, D: int) -> torch.Tensor:
+    """pairs_from_rids for D dictionaries stacked flat in ``rids_all``
+    (dict d's rids at [d*n, (d+1)*n)): the (D*n/8, 16) stacked pair rows
+    in one gather; a dictionary's boundary behaves like its own tail
+    (positions past its n fill with -1)."""
+    n = rids_all.shape[0] // D
+    rows_per = n // 8
+    dev = rids_all.device
+    i = torch.arange(D * rows_per, dtype=torch.int64, device=dev)[:, None]
+    d = i // rows_per
+    li = (i % rows_per) * 8 + torch.arange(16, dtype=torch.int64,
+                                            device=dev)[None, :]
+    out = rids_all[(d * n + li).clamp(max=D * n - 1)]
+    return torch.where(li >= n, -1, out).to(rids_all.dtype)
 
 
 def pairs_from_rids(rids: torch.Tensor) -> torch.Tensor:
@@ -338,6 +494,23 @@ def probe_meta(btab: torch.Tensor, queries: torch.Tensor):
         start, count = _at_first_hit(
             (row[:, :SLOTS] == flat[:, None]) & (crow > 0),
             row[:, SLOTS:2 * SLOTS], crow)
+    return start.reshape(queries.shape), count.reshape(queries.shape)
+
+
+def probe_meta_split_stacked(btab_all: torch.Tensor, S: int,
+                             queries: torch.Tensor):
+    """Metadata probe of D compact/wide tables stacked along dim 0 (dict
+    d's buckets at rows [d*S, (d+1)*S)); queries (D, ...) int32 keys.
+    Returns (start, count) int32 with queries' shape (count 0 on miss):
+    one row gather serves every dictionary, the format read from the
+    stacked table's row width."""
+    D = queries.shape[0]
+    flat = bits.u32(queries.reshape(D, -1))
+    b = bits.mul32(flat, _HASH_MULT) >> (32 - _log2(S))
+    b = b + (torch.arange(D, dtype=torch.int64, device=queries.device)
+             * S)[:, None]
+    start, count = _meta_from_rows(bits.u32(btab_all[b.reshape(-1)]),
+                                   flat.reshape(-1))
     return start.reshape(queries.shape), count.reshape(queries.shape)
 
 

@@ -76,6 +76,9 @@ class ReorderConfig:
     # fraction of the reads since the last one (above 1: never)
     rebuild_fraction: float = 10.0
     flush_rounds: int = FLUSH_ROUNDS     # rounds between host syncs
+    # wide dictionary rows (32-bit starts, 8-bit counts) below the 2^27
+    # entries that call for them: the probe that 135M+ reads take
+    force_wide: bool = False
 
     def __post_init__(self):
         if self.max_shift == 0:
@@ -835,7 +838,7 @@ class ReorderEngine:
             "single", self.Np, self.W, self.B, self.Lb, starts,
             cfg.candidates, cfg.shift_chunk, cfg.accept_slots, cfg.thresh,
             cfg.far_near, cfg.cap_per_round, cfg.flush_rounds,
-            dct._use_wide(self.Np), str(self.device))
+            dct._use_wide(self.Np, cfg.force_wide), str(self.device))
 
     def _check_live(self) -> None:
         if self._released:
@@ -876,7 +879,8 @@ class ReorderEngine:
                               self.lengths)
 
     def _build_dicts(self, rows: torch.Tensor) -> None:
-        self._dicts = dct.build_hash_dicts_device(rows, self.N, self.windows)
+        self._dicts = dct.build_hash_dicts_device(
+            rows, self.N, self.windows, self.cfg.force_wide)
         for d in self._dicts:
             nd = int(d.dropped)
             if nd:
@@ -946,6 +950,7 @@ class ReorderEngine:
         self._build_dicts(rows_tab)
         # both dicts' tables stacked: one probe gather serves every dict
         dkeys = torch.cat([d.btab for d in self._dicts], dim=0)
+        row_words = int(dkeys.shape[1])     # compact 12, wide 14
         pairs_all = torch.cat([dct.pairs_from_rids(d.rids)
                                for d in self._dicts], dim=0)
         for d in self._dicts:
@@ -1085,7 +1090,7 @@ class ReorderEngine:
             program_cache="hit" if hit else "miss",
             eager_rounds=runner.eager_rounds,
             cached_program_bytes=graphs.cached_program_bytes(dev),
-            staged_rows=staged)
+            staged_rows=staged, dict_row_words=row_words)
         return out
 
 

@@ -2,8 +2,9 @@
 inputs of STAGER_MIN_READS reads and up): reorder/engine.py's
 DeviceRowStager over full and tail segments, ReorderEngine(rows_dev=...)
 against the engine without it, compress_short with the threshold lowered
-against spring_tpu's archive (JAX on the CPU) byte for byte, and a
-dictionary-build prewarm whose failure is the compress call's."""
+against spring_tpu's archive (JAX on the CPU) byte for byte, with the
+stager and without it (CompressOptions.stager), and a dictionary-build
+prewarm whose failure is the compress call's."""
 import filecmp
 
 import numpy as np
@@ -89,6 +90,27 @@ def test_staged_compress_byte_equal_to_spring_tpu(tmp_path, monkeypatch):
     out = str(tmp_path / "out.fastq")
     tapi.decompress(a_torch, [out], verbose=False, num_threads=2)
     assert filecmp.cmp(fq, out, shallow=False)
+
+
+def test_compress_without_stager_byte_equal_to_spring_tpu(tmp_path,
+                                                         monkeypatch):
+    """CompressOptions.stager False (spring_tpu's SPRING_TPU_NO_STAGER):
+    the large-input path without staged rows, its prewarm kept, gives
+    spring_tpu's archive."""
+    from spring_tpu import api as japi
+    fq = str(tmp_path / "in.fastq")
+    synth.make_se(fq, 9000, read_len=100, genome_size=22_000, seed=12,
+                  n_rate=0.0005)
+    a_jax, a_torch = str(tmp_path / "jax.stpu"), str(tmp_path / "t.stpu")
+    monkeypatch.setenv("SPRING_TPU_NO_STAGER", "1")
+    japi.compress([fq], a_jax, japi.CompressOptions(num_threads=2,
+                                                    verbose=False))
+    _small_large_path(monkeypatch)
+    tapi.compress([fq], a_torch, tapi.CompressOptions(
+        num_threads=2, verbose=False, stager=False), device="cpu")
+    stats = teng.LAST_RUN_STATS
+    assert not stats["staged_rows"] and stats["dict_prewarm_s"] is not None
+    assert filecmp.cmp(a_jax, a_torch, shallow=False)
 
 
 def test_prewarm_failure_fails_the_compress(tmp_path, monkeypatch):
