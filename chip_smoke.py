@@ -15,9 +15,10 @@ Phases, each printing its numbers on a line of its own:
      shifts, a 2^20-row table; claimed bits, candidates below 0 and past
      the table, padding rows, empty ranges, negative offsets, both
      orientations), the same at the round's shape of bench_torch.py's
-     10M reads (B=8192 walkers, a 2^24-row table), and masked_hamming at
-     the
-     row-major round shape (4096 walkers, and the 2048 and 1024 that a
+     10M reads (B=8192 walkers, a 2^24-row table) and at that of
+     tools/rss_check_torch.py's 100M reads (B=8192 walkers, the engine's
+     1/8-octave table of 6 * 2^24 = 100,663,296 rows), and masked_hamming
+     at the row-major round shape (4096 walkers, and the 2048 and 1024 that a
      rank of 2 or 4 holds) and the word-major (W=7, B=16384, K=128) shape
      with edge ranges. A kernel's time is the device's: CUDA events around
      the replay of a CUDA graph of 200 launches, captured inside the
@@ -95,7 +96,13 @@ Phases, each printing its numbers on a line of its own:
      rank: every read placed once, every rank's emissions equal, one
      launch a round run on every rank; 12e, phase 10's 2M reads with
      CompressOptions(stager=False): rows not staged, the prewarm run, the
-     archive byte-equal to phase 10's.
+     archive byte-equal to phase 10's;
+ 13. the multi-segment consensus match (second chance and stitching past
+     a 2^25-base consensus, as at 100M reads): align_leftovers_packed on
+     the card against the port's CPU path, exactly equal, on a consensus
+     of 2^25 + 2^20 bases (three segment dictionaries) and 20,000 reads,
+     without and with stitching's exclude, each segment's matcher loop
+     replayed (segments_phase).
 Every engine run on the card (phases 4-11) runs its flushes on the flush
 runner (spring_tpu_torch/reorder/engine.py) from the program cache
 (spring_tpu_torch/ops/graphs.py): on a miss the first round called, then
@@ -114,7 +121,8 @@ card against CPU); phases 4, 5, 10 and 12b print each matcher's loops,
 iterations, captures, replays, capture seconds and pool bytes, and a
 loop whose iterations after the first were not all replayed fails.
 Then one JSON line of kernel results (launches summed over phases 5-11,
-each entry's device time beside its bound on this card) and, last, the device
+each entry's device time beside its bound on this card; phase 13's
+numbers under "multi_segment_match") and, last, the device
 line {"ok": true, "device": {...}}. Any failure raises: the exit code is
 then not 0 and no result line is printed. Needs a CUDA card; imports
 neither JAX nor the JAX package.
@@ -361,22 +369,29 @@ def check_kernel(torch, kernels, thresh):
         accepted=int(ok.sum()))
     del vargs, want, got
     # ---- the fused verify at the round's shape of bench_torch.py's 10M
-    # reads: 8192 walkers (the REORDER_BATCH cap) over a 2^24-row table
-    B8, Np24, n10 = 8192, 1 << 24, 10_000_000
-    vargs = verify_inputs(torch, B8, M, W, SC, Np24, n10, SEED + 3)
-    want = kernels.verify_rows_ref(*vargs, thresh)
-    same("verify_rows at B=8192", kernels.verify_rows(*vargs, thresh), want)
-    ms, got = kernels.verify_rows_device_ms(*vargs, thresh)
-    same("verify_rows at B=8192 (timed launches)", got, want)
-    out["verify_rows"]["at_10M_reads"] = dict(
-        shape=f"B={B8} M={M} W={W} SC={SC} Np={Np24}",
-        **verify_bound(torch, vargs), ms=ms,
-        enqueue_ms=cuda_ms(torch, lambda: kernels.verify_rows(*vargs,
-                                                              thresh)),
-        plain_ms=cuda_ms(torch, lambda: kernels.verify_rows_ref(*vargs,
-                                                                thresh)),
-        accepted=int(want[0].sum()))
-    del vargs, want, got
+    # reads: 8192 walkers (the REORDER_BATCH cap) over a 2^24-row table,
+    # and of tools/rss_check_torch.py's 100M reads: the same walkers over
+    # the engine's 1/8-octave table of 6 * 2^24 rows
+    from spring_tpu_torch.reorder.engine import padded_n
+    B8 = 8192
+    for key, n_big, seed in (("at_10M_reads", 10_000_000, SEED + 3),
+                             ("at_100M_reads", 100_000_000, SEED + 4)):
+        Np_big = padded_n(n_big)
+        vargs = verify_inputs(torch, B8, M, W, SC, Np_big, n_big, seed)
+        want = kernels.verify_rows_ref(*vargs, thresh)
+        same(f"verify_rows {key}", kernels.verify_rows(*vargs, thresh),
+             want)
+        ms, got = kernels.verify_rows_device_ms(*vargs, thresh)
+        same(f"verify_rows {key} (timed launches)", got, want)
+        out["verify_rows"][key] = dict(
+            shape=f"B={B8} M={M} W={W} SC={SC} Np={Np_big}",
+            **verify_bound(torch, vargs), ms=ms,
+            enqueue_ms=cuda_ms(torch, lambda: kernels.verify_rows(
+                *vargs, thresh)),
+            plain_ms=cuda_ms(torch, lambda: kernels.verify_rows_ref(
+                *vargs, thresh)),
+            accepted=int(want[0].sum()))
+        del vargs, want, got
     # ---- masked Hamming, row-major: (B, M, W) frames, (B, M, W+1) rows
     fr, rw, lo, hi = kernel_inputs(torch, (B, M), W, SEED)
     lw = torch.full((B, M, 1), 100, dtype=torch.int32, device="cuda")
@@ -766,6 +781,93 @@ def last_phase(tmp, fq_small, fq, fq_large, a_large, single, on_card,
     os.remove(arc)
 
 
+def segments_phase(card) -> dict:
+    """Phase 13: the multi-segment consensus match on the card against the
+    port's CPU path. A consensus of 2^25 + 2^20 bases (past the single
+    dictionary's 2^25: one dictionary a 2^24-base segment, three here,
+    their matches min-folded, as at 100M reads) with a 4,000-base stretch
+    of segment 0 repeated in segment 2; 20,000 reads of it, both
+    orientations, a third with 1-3 substitutions, 1 in 20 with an N run,
+    200 across the segment boundaries and 200 in the repeat. Second
+    chance's call (no exclude) and stitching's (a third of the reads
+    vetoed at their own start), each in chunks of 2^14 oriented rows so
+    that every segment's loop replays its graph: (gpos, rc, placed)
+    exactly equal, three segments, and each loop replayed."""
+    import numpy as np
+    import torch
+    from spring_tpu_torch.encode import second_chance as sc
+    from spring_tpu_torch.io import packing
+    from spring_tpu_torch.ops import graphs
+
+    total, n, L = sc.SINGLE_MAX + (1 << 20), 20_000, 100
+    rng = np.random.default_rng(SEED + 13)
+    seq = rng.integers(0, 4, total).astype(np.uint8)
+    rep0, rep2 = 1_000_000, 2 * sc.SEG_BASES + 500_000
+    seq[rep2:rep2 + 4000] = seq[rep0:rep0 + 4000]
+    pos = rng.integers(0, total - L, n)
+    edges = np.array([sc.SEG_BASES, 2 * sc.SEG_BASES])
+    pos[:200] = np.repeat(edges, 100) - rng.integers(1, L, 200)
+    pos[200:400] = rep0 + rng.integers(0, 4000 - L, 200)
+    codes = seq[pos[:, None] + np.arange(L)[None, :]].copy()
+    lens = np.full(n, L, np.int32)
+    sub = np.arange(1, n, 3)
+    for _ in range(3):
+        pick = sub[rng.random(len(sub)) < 0.6]
+        col = rng.integers(0, L, len(pick))
+        codes[pick, col] = (codes[pick, col]
+                            + rng.integers(1, 4, len(pick))) % 4
+    nrow = np.arange(7, n, 20)
+    start = rng.integers(0, L - 8, len(nrow))
+    for j in range(6):
+        codes[nrow, start + j] = packing.N
+    rc = rng.random(n) < 0.5
+    codes[rc] = packing.revcomp_codes(codes[rc], lens[rc])
+    pk = packing.pack_codes(codes)
+    ind = (codes == packing.N).astype(np.uint8)
+    nm_f = packing.pack_codes(ind)
+    nm_r = packing.pack_codes(ind[:, ::-1].copy())   # all reads length L
+    ex = np.where(np.arange(n) % 3 == 0, pos, -1).astype(np.int32)
+    out = {}
+    default_chunk = sc.MATCH_CHUNK
+    sc.MATCH_CHUNK = 1 << 14
+    try:
+        for name, kw in (("second_chance_match", {}),
+                         ("stitch_match", dict(exclude=ex))):
+            graphs.LOOP_STATS.clear()
+            torch.cuda.synchronize()
+            t = time.time()
+            got = sc.align_leftovers_packed(seq, pk, nm_f, nm_r, lens,
+                                            device="cuda", **kw)
+            torch.cuda.synchronize()
+            card_s = time.time() - t
+            loops = json.loads(json.dumps(graphs.LOOP_STATS))
+            segs = sc.SEGMENTS[name]
+            t = time.time()
+            want = sc.align_leftovers_packed(seq, pk, nm_f, nm_r, lens,
+                                             device="cpu", **kw)
+            cpu_s = time.time() - t
+            for g, w, what in zip(got, want, ("gpos", "rc", "placed")):
+                if g.dtype != w.dtype or not np.array_equal(g, w):
+                    raise AssertionError(f"phase 13 {name}: {what} on the "
+                                         "card differs from the CPU path")
+            st = loops[name]
+            need_loops(f"phase 13 {name}", loops, replayed=False)
+            if segs != 3 or st["loops"] != 3 or not st["replays"]:
+                raise AssertionError(f"phase 13 {name}: want 3 segments, "
+                                     f"one replayed loop each; segments "
+                                     f"{segs}, loops {loops}")
+            placed = int(want[2].sum())
+            log(f"[segments] {name}: consensus {total} bases in {segs} "
+                f"dictionaries, {n} reads: card equal to the CPU path "
+                f"(placed {placed}); card {card_s:.3f} s, CPU {cpu_s:.3f} "
+                f"s; loops {json.dumps(st)}; on {card}")
+            out[name] = dict(segments=segs, reads=n, placed=placed,
+                             card_s=card_s, cpu_s=cpu_s, loops=st)
+    finally:
+        sc.MATCH_CHUNK = default_chunk
+    return out
+
+
 def kernel_phases():
     """Phases 1-3: the card, the builds, every kernel entry against its
     plain version. Returns (card line, device name, kernel entries)."""
@@ -808,13 +910,14 @@ def kernel_phases():
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} "
             f"bytes at {HBM_BYTES_PER_S:.3g} B/s, {r['ops']} operations "
             f"at {ALU_OPS_PER_S:.3g}/s) on {card}")
-    r = kres["verify_rows"]["at_10M_reads"]
-    log(f"[kernel] verify_rows ({r['shape']}): equal to its plain version; "
-        f"device {r['ms']:.5f} ms a launch, wrapper enqueue "
-        f"{r['enqueue_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms; bound "
-        f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} bytes, "
-        f"{r['ops']} operations); accepted {r['accepted']} of {8192 * 16} "
-        f"slots; on {card}")
+    for key in ("at_10M_reads", "at_100M_reads"):
+        r = kres["verify_rows"][key]
+        log(f"[kernel] verify_rows {key} ({r['shape']}): equal to its "
+            f"plain version; device {r['ms']:.5f} ms a launch, wrapper "
+            f"enqueue {r['enqueue_ms']:.5f} ms, plain {r['plain_ms']:.5f} "
+            f"ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+            f"({r['bytes']} bytes, {r['ops']} operations); accepted "
+            f"{r['accepted']} of {8192 * 16} slots; on {card}")
     log(f"[kernel] an empty kernel timed the same way: "
         f"{kernels.launch_floor_device_ms():.5f} ms a launch on {card}")
     log(f"[kernel] verify_rows accepted "
@@ -1218,6 +1321,9 @@ def main() -> int:
         for f in (fq, fq_large, a2):
             os.remove(f)
 
+    # ---- phase 13: the multi-segment consensus match
+    segments = segments_phase(card)
+
     def entry(name, launches):
         r = kres[name]
         out = {
@@ -1228,10 +1334,11 @@ def main() -> int:
             "ms": r["ms"], "enqueue_ms": r["enqueue_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None}
-        if "at_10M_reads" in r:
-            out["at_10M_reads"] = {k: r["at_10M_reads"][k] for k in (
-                "shape", "ms", "enqueue_ms", "plain_ms", "bound_ms",
-                "bound_by")}
+        for key in ("at_10M_reads", "at_100M_reads"):
+            if key in r:
+                out[key] = {k: r[key][k] for k in (
+                    "shape", "ms", "enqueue_ms", "plain_ms", "bound_ms",
+                    "bound_by")}
         return out
 
     # the fused entry carries the single-device round (phases 5-7, 10, 11a
@@ -1243,7 +1350,8 @@ def main() -> int:
         raise AssertionError(f"a kernel of the main paths never ran: "
                              f"{total}")
     log(json.dumps({"kernels": [entry(name, n)
-                                for name, n in total.items()]}))
+                                for name, n in total.items()],
+                    "multi_segment_match": segments}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -26,6 +26,12 @@ _BIG = 2**31 - 1
 CANDS = 8
 _PAD = 16        # leading pad bases so window word -1 is addressable
 MATCH_CHUNK = 1 << 17    # oriented rows a matcher call (a power of two)
+# consensus dictionaries of the latest call, by matcher name (as in
+# graphs.LOOP_STATS): 1 up to SINGLE_MAX bases, else one a SEG_BASES
+# segment; compress_short clears it
+SEGMENTS: dict[str, int] = {}
+SEG_BASES = 1 << 24
+SINGLE_MAX = 1 << 25
 
 
 def windows_for(max_len: int) -> tuple[int, ...]:
@@ -136,9 +142,8 @@ def align_leftovers_packed(seq_codes: np.ndarray, pk: np.ndarray,
 
     # one whole-consensus dict up to 2^25 positions; beyond that, dicts
     # per 2^24-base segment with global positions, min-folded
-    seg_bases = 1 << 24
-    single_max = 1 << 25
-    nseg = max(1, -(-total // seg_bases)) if total > single_max else 1
+    seg_bases = SEG_BASES
+    nseg = max(1, -(-total // seg_bases)) if total > SINGLE_MAX else 1
 
     seq_pk = packing.pack_codes(np.concatenate(
         [np.zeros(_PAD, np.uint8), seq_codes,
@@ -162,6 +167,7 @@ def align_leftovers_packed(seq_codes: np.ndarray, pk: np.ndarray,
     # the caller that passes exclude.
     CH = min(2 * k2, MATCH_CHUNK)
     name = "second_chance_match" if exclude is None else "stitch_match"
+    SEGMENTS[name] = nseg
 
     def match_fold(btab, pos_bins, best):
         def match(rows, rcbit, *ex):

@@ -118,6 +118,9 @@ LAST_STAGE_SECONDS: dict[str, float] = {}
 # (torch.cuda.max_memory_allocated) at the end of each stage of that run:
 # the stage where it rises set the peak
 LAST_STAGE_PEAK_BYTES: dict[str, int] = {}
+# the same for the reserved bytes (torch.cuda.max_memory_reserved): the
+# allocator's cache and the graph pools beside the tensors
+LAST_STAGE_RESERVED_BYTES: dict[str, int] = {}
 
 
 def compress_short(files: list[str], writer: ArchiveWriter,
@@ -145,7 +148,9 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     if _scanned is None:    # a shard adds its stages to the outer call's
         LAST_STAGE_SECONDS.clear()
         LAST_STAGE_PEAK_BYTES.clear()
+        LAST_STAGE_RESERVED_BYTES.clear()
         graphs.LOOP_STATS.clear()
+        sc.SEGMENTS.clear()
     _t = time.time()
     card = torch.device(device).type == "cuda"
 
@@ -157,6 +162,8 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         if card:
             LAST_STAGE_PEAK_BYTES[stage] = torch.cuda.max_memory_allocated(
                 device)
+            LAST_STAGE_RESERVED_BYTES[stage] = (
+                torch.cuda.max_memory_reserved(device))
         _t = now
 
     block = cp.num_reads_per_block
@@ -532,6 +539,8 @@ def compress_short(files: list[str], writer: ArchiveWriter,
 
     unmatched = int((flag == 0).sum())
     eng.LAST_RUN_STATS["unmatched_frac"] = round(unmatched / max(n, 1), 5)
+    eng.LAST_RUN_STATS["unmatched"] = unmatched
+    eng.LAST_RUN_STATS["consensus_segments"] = dict(sc.SEGMENTS)
 
     _submit_seq()       # edge paths reach here without the early submission
 

@@ -290,41 +290,50 @@ def _hash_build_core(keys: torch.Tensor, ok: torch.Tensor, S: int,
     h = key * _HASH_MULT (a bijection, so equal keys still bin together
     and bucket ids come out monotonic) and padding keyed as
     (0xFFFFFFFF, INT32_MAX); the sort key is the composite int64
-    h * 2^31 + rid. Bin heads, per-bucket slot ranks and placement follow
-    from neighbour compares and cumulative ops. Returns
-    (btab, keys_sorted, rids_sorted, dropped) — keys_sorted holds h."""
+    h * 2^31 + rid. After the sort the work runs over the K bins (their
+    heads, found by neighbour compares), not the Np rows: per-bucket slot
+    ranks and placement follow from cumulative ops over the bins. Each
+    temporary is dropped as soon as it is used (the Np-long ones first),
+    so that the build holds a few Np-long words beside the sort's (at
+    100M reads Np is 100,663,296: 0.8 GB an int64 word). The bin-head
+    count syncs with the host: the build runs eagerly, never inside a
+    CUDA graph. Returns (btab, keys_sorted, rids_sorted, dropped) —
+    keys_sorted holds h."""
     Np = keys.shape[0]
     dev = keys.device
     rid = (torch.arange(Np, dtype=torch.int64, device=dev) if rids is None
            else rids.to(torch.int64))
-    h = torch.where(ok, bits.mul32(keys, _HASH_MULT), bits.MASK32)
-    ridkey = torch.where(ok, rid, _PAD_RID)
-    skey, _ = torch.sort(h * 2**31 + ridkey)
+    skey = torch.where(ok, bits.mul32(keys, _HASH_MULT), bits.MASK32)
+    del keys
+    skey.mul_(2**31).add_(torch.where(ok, rid, _PAD_RID))
+    del rid, ok
+    skey = torch.sort(skey).values
     h_s = skey >> 31
-    rk_s = skey & _PAD_RID
-    rids_s = torch.where(rk_s == _PAD_RID, -1, rk_s)
-    keys_s = bits.mul32(h_s, _HASH_MULT_INV)    # original window keys
-
-    pos = torch.arange(Np, dtype=torch.int64, device=dev)
+    rids_out = skey & _PAD_RID
+    del skey
+    rids_out = torch.where(rids_out == _PAD_RID, -1, rids_out).to(
+        torch.int32)
     one = torch.ones(1, dtype=torch.bool, device=dev)
-    first = torch.cat([one, h_s[1:] != h_s[:-1]])
-    # segment end of the bin starting at i = next 'first' position after i
-    marks = torch.where(first, pos, Np)
-    nxt = torch.cat([marks[1:], marks.new_full((1,), Np)])
-    nxt = torch.cummin(nxt.flip(0), 0).values.flip(0)
-    ucount = nxt - pos                           # valid where first
+    # bin heads (K,), ascending; a bin runs to the next head
+    pos = torch.cat([one, h_s[1:] != h_s[:-1]]).nonzero().squeeze(1)
+    ucount = torch.diff(pos, append=pos.new_full((1,), Np))
+    hb = h_s[pos]
+    h_out = bits.i32(h_s)
+    del h_s
     # drop the all-padding sentinel bin
-    entry = first & ~((h_s == bits.MASK32) & (rids_s == -1))
-
-    b = h_s >> (32 - _log2(S))                   # monotonic buckets
+    entry = ~((hb == bits.MASK32) & (rids_out[pos] == -1))
+    b = hb >> (32 - _log2(S))                    # monotonic buckets
+    keys_s = bits.mul32(hb, _HASH_MULT_INV)      # original window keys
+    del hb
     bfirst = torch.cat([one, b[1:] != b[:-1]])
     e = entry.to(torch.int64)
     ecum0 = torch.cumsum(e, 0) - e
-    base = torch.cummax(torch.where(bfirst, ecum0, 0), 0).values
-    rank = ecum0 - base
+    del e
+    rank = ecum0 - torch.cummax(torch.where(bfirst, ecum0, 0), 0).values
+    del ecum0, bfirst
     fits = entry & (rank < SLOTS)
     dropped = (entry & ~fits).sum().to(torch.int32)
-    rids_out = rids_s.to(torch.int32)
+    del entry
 
     if compact:
         # direct 2-D scatter-add into (S+1, words) rows, row S the sink:
@@ -349,12 +358,13 @@ def _hash_build_core(keys: torch.Tensor, ok: torch.Tensor, S: int,
             vals = [val_tag, torch.where(fits, pos, 0),
                     torch.where(fits, cnt8, 0)]
             words = WIDE_WORDS
-        # integer adds commute, so the atomic scatter-add is deterministic
-        btab = torch.zeros((S + 1) * words, dtype=torch.int64, device=dev)
+        # integer adds commute, so the atomic scatter-add is deterministic;
+        # a word's values own disjoint bits (at most one of them bit 31),
+        # so their int32 patterns add without overflow
+        btab = torch.zeros((S + 1) * words, dtype=torch.int32, device=dev)
         btab.index_add_(0, torch.cat([rowi * words + c for c in cols]),
-                        torch.cat(vals))
-        return (bits.i32(btab.view(S + 1, words)[:S]), bits.i32(h_s),
-                rids_out, dropped)
+                        bits.i32(torch.cat(vals)))
+        return btab.view(S + 1, words)[:S], h_out, rids_out, dropped
 
     # classic full-key rows [keys | starts | counts] (sequence dicts),
     # placed as int32 patterns straight away
@@ -364,7 +374,7 @@ def _hash_build_core(keys: torch.Tensor, ok: torch.Tensor, S: int,
         f = torch.zeros(S * SLOTS + 1, dtype=torch.int32, device=dev)
         f[flat] = torch.where(fits, v, 0)   # only the sink sees duplicates
         planes.append(f[: S * SLOTS].reshape(S, SLOTS))
-    return torch.cat(planes, dim=1), bits.i32(h_s), rids_out, dropped
+    return torch.cat(planes, dim=1), h_out, rids_out, dropped
 
 
 def build_hash_dicts_device(rows: torch.Tensor, n_real: int,

@@ -46,11 +46,17 @@ _BIG = 2**31 - 1
 LAST_RUN_STATS: dict = {}
 
 
+# reads up to which padded_n pads to a power of two (the JAX package's
+# literal 2^26); past it, 1/8-octave granules
+POW2_MAX_READS = 1 << 26
+
+
 def padded_n(n: int) -> int:
-    """Engine read-count padding: pow2 up to 2^26 reads, then 1/8-octave
-    granules. Always a multiple of 64 (bitmap words, pairs rows)."""
+    """Engine read-count padding: pow2 up to POW2_MAX_READS reads, then
+    1/8-octave granules (100M reads: 6 * 2^24). Always a multiple of 64
+    (bitmap words, pairs rows)."""
     np_pow2 = max(1 << max(n - 1, 1).bit_length(), 64)
-    if n <= (1 << 26):
+    if n <= POW2_MAX_READS:
         return np_pow2
     gran = 1 << (max(n - 1, 1).bit_length() - 3)
     return min(-(-n // gran) * gran, np_pow2)
@@ -823,6 +829,7 @@ class ReorderEngine:
                      else min(cfg.num_walkers, max(8, self.Np // 8)))
         self.windows = dct.default_windows(cfg.max_readlen)
         self._dicts = None
+        self.dict_dropped: list[int] = []
         self._released = False
         lengths_p = np.zeros(self.Np, np.int32)
         lengths_p[: self.N] = lengths_sel
@@ -881,8 +888,8 @@ class ReorderEngine:
     def _build_dicts(self, rows: torch.Tensor) -> None:
         self._dicts = dct.build_hash_dicts_device(
             rows, self.N, self.windows, self.cfg.force_wide)
-        for d in self._dicts:
-            nd = int(d.dropped)
+        self.dict_dropped = [int(d.dropped) for d in self._dicts]
+        for nd in self.dict_dropped:
             if nd:
                 print(f"[dict] {nd} keys overflowed the hash table and "
                       "were dropped", file=sys.stderr)
@@ -1090,7 +1097,8 @@ class ReorderEngine:
             program_cache="hit" if hit else "miss",
             eager_rounds=runner.eager_rounds,
             cached_program_bytes=graphs.cached_program_bytes(dev),
-            staged_rows=staged, dict_row_words=row_words)
+            staged_rows=staged, dict_row_words=row_words, Np=self.Np,
+            dict_dropped=list(self.dict_dropped))
         return out
 
 
