@@ -19,7 +19,8 @@ Phases, each printing its numbers on a line of its own:
      tools/rss_check_torch.py's 100M reads (B=8192 walkers, the engine's
      1/8-octave table of 6 * 2^24 = 100,663,296 rows), and masked_hamming
      at the row-major round shape (4096 walkers, and the 2048 and 1024 that a
-     rank of 2 or 4 holds) and the word-major (W=7, B=16384, K=128) shape
+     rank of 2 or 4 holds, and the 8192 of the distributed round at 10M
+     reads on one rank) and the word-major (W=7, B=16384, K=128) shape
      with edge ranges. A kernel's time is the device's: CUDA events around
      the replay of a CUDA graph of 200 launches, captured inside the
      library (an empty kernel timed the same way is printed as the floor);
@@ -60,9 +61,11 @@ Phases, each printing its numbers on a line of its own:
   9. only where more than one card is visible: the same compress on the
      largest power of two of ranks up to 4, one process and one card
      each, through multihost.launch: the emissions equal on every rank,
-     round trip byte-exact, the same numbers as phase 8. With one card it
-     prints one line saying so. It never puts two ranks on one card and
-     never moves to the CPU;
+     round trip byte-exact, the same numbers as phase 8, every rank's
+     flushes replayed as CUDA graphs with its collectives inside. With one
+     card it prints one line saying so. It never puts two ranks on one
+     card and never moves to the CPU. ``multi_card_phase()`` runs phase 5's
+     single-engine compress and this phase alone;
  10. the large-input path: 2,000,000 SE reads (bench.py's profile,
      genome 4,000,000, seed 42) compressed twice in this process with the
      default options: the first call must stage its rows on the card
@@ -419,6 +422,23 @@ def check_kernel(torch, kernels, thresh):
         enqueue_ms=cuda_ms(torch, lambda: kernels.masked_hamming_rows(
             fr, rows, lo, hi)),
         plain_ms=cuda_ms(torch, plain_rows))
+    del fr, rw, lo, hi, lw, rows
+    # ---- the same at the distributed round's shape of a 10M-read input
+    # at world size 1 (tools/bench_dist_torch.py): 8192 walkers
+    fr, rw, lo, hi = kernel_inputs(torch, (B8, M), W, SEED + 5)
+    lw = torch.full((B8, M, 1), 100, dtype=torch.int32, device="cuda")
+    rows = torch.cat([rw, lw], dim=-1).contiguous()
+    same("masked_hamming_rows at_10M_dist_round",
+         [kernels.masked_hamming_rows(fr, rows, lo, hi)], [plain_rows()])
+    out["masked_hamming_rows"]["at_10M_dist_round"] = dict(
+        shape=f"B={B8} M={M} W={W} rows stride {W + 1}",
+        **kernel_bound(B8 * M, W),
+        ms=kernels.masked_hamming_device_ms(fr, rows, lo, hi,
+                                            row_major=True),
+        enqueue_ms=cuda_ms(torch, lambda: kernels.masked_hamming_rows(
+            fr, rows, lo, hi)),
+        plain_ms=cuda_ms(torch, plain_rows))
+    del fr, rw, lo, hi, lw, rows
     # ---- word-major (W, B, K), the JAX kernel's layout and microbench
     # shape
     B2, K = 16384, 128
@@ -552,6 +572,124 @@ def dist_rank(world, fq, arc, threads):
     torch.cuda.synchronize()
     return (time.time() - t, read_counts(kernels, "masked_hamming_rows"),
             torch.cuda.max_memory_allocated(), dict(engine.LAST_RUN_STATS))
+
+
+def dist_report(tag, n, secs, launches, peak, stats, fq, arc, out, single,
+                card):
+    """Check one distributed compress of phase 5's reads (its archive is
+    at ``arc``; ``out`` takes the decompressed reads) against the single
+    engine's numbers in ``single``, and print its numbers."""
+    from spring_tpu_torch import api
+    api.decompress(arc, [out], num_threads=THREADS, verbose=False)
+    same_bytes(fq, out, f"{tag} round trip")
+    size = os.path.getsize(arc)
+    if abs(size - single["archive"]) > 0.05 * single["archive"] + 10240:
+        raise AssertionError(
+            f"{tag}: archive {size} bytes against the single "
+            f"engine's {single['archive']}")
+    if (launches != stats["rounds_run"]
+            or stats["collectives_per_round"] != 7
+            or stats["world_size"] != n):
+        raise AssertionError(
+            f"{tag}: {launches} launches of masked_hamming_rows, "
+            f"engine {stats}")
+    need_graphs(tag, stats)
+    log(f"[{tag}] world size {n} over NCCL: compress {secs:.3f} s = "
+        f"{N_READS / secs:.1f} reads/s; round trip byte-exact; "
+        f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
+        f"{stats['ms_per_round']} ms a round; unmatched fraction "
+        f"{stats.get('unmatched_frac')}; archive {size} bytes "
+        f"(single engine {single['archive']}); peak device memory "
+        f"{peak} bytes; collectives a round "
+        f"{stats['collectives_per_round']} ({stats['collectives']} "
+        f"in all, counted at each replay; host time inside them not "
+        f"measured: graphs replay them with no host call); "
+        f"masked_hamming_rows launches {launches}; engine "
+        f"{stats['flush_wall_s']} s = "
+        f"{stats['flush_wall_s'] / single['engine_s']:.3f} of the "
+        f"single engine's {single['engine_s']} s; engine: "
+        f"{engine_line(stats)}; on {card}")
+    os.remove(arc)
+    os.remove(out)
+
+
+def dist_ranks_phase(fq, arc, out, single, card, total) -> None:
+    """Phase 9: phase 5's compress on the distributed engine over 4 ranks
+    (2 where two or three cards are visible), one spawned process and one
+    card each, checked as phase 8 (dist_report) and with the emissions
+    equal on every rank; each rank's launches are added to ``total``.
+    With one card it prints that it was skipped."""
+    import torch
+    from spring_tpu_torch.parallel import multihost
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("[dist-n] skipped: one card is visible, and the ranks of a "
+            "world take one card each")
+        return
+    n = 4 if cards >= 4 else 2
+    res = multihost.launch(dist_rank, n, (fq, arc, THREADS),
+                           device="cuda", timeout=900.0)
+    digests = {r[3]["emissions_sha256"] for r in res}
+    if len(digests) != 1:
+        raise AssertionError(f"emissions differ between the {n} ranks")
+    log(f"[dist-n] emissions equal on all {n} ranks (each a fresh "
+        "process: its compress seconds include CUDA and NCCL start-up)")
+    for rank, r in enumerate(res):
+        if r[1]["masked_hamming_rows"] != r[3]["rounds_run"]:
+            raise AssertionError(
+                f"a rank launched masked_hamming_rows "
+                f"{r[1]['masked_hamming_rows']} times in "
+                f"{r[3]['rounds_run']} rounds")
+        need_graphs(f"dist-n rank {rank}", r[3])
+        for name, k in r[1].items():
+            total[name] += k
+    secs, counts, peak, stats = res[0]
+    dist_report("dist-n", n, secs, counts["masked_hamming_rows"], peak,
+                stats, fq, arc, out, single, card)
+
+
+def multi_card_phase() -> int:
+    """Phase 9 alone, for a machine with several cards: phase 5's reads,
+    their compress on the single engine on the first card (what phase 9
+    is held against), then phase 9. Prints the card line first and the
+    device line last.
+
+        python -c "import chip_smoke, sys; sys.exit(chip_smoke.multi_card_phase())"
+    """
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    if torch.cuda.device_count() < 2:
+        raise SystemExit("chip_smoke: phase 9 needs two cards or more")
+    from spring_tpu_torch import api
+    from spring_tpu_torch.ops import kernels
+    from spring_tpu_torch.reorder import engine
+    from spring_tpu_torch.utils import synth
+    card = card_line()
+    log(card)
+    total = dict.fromkeys(KERNEL_NAMES, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fq = os.path.join(tmp, "in.fastq")
+        synth.make_se(fq, N_READS, read_len=100, genome_size=GENOME,
+                      seed=SEED)
+        arc = os.path.join(tmp, "in.stpu")
+        out = os.path.join(tmp, "out.fastq")
+        zero_counts(kernels)
+        api.compress([fq], arc, api.CompressOptions(
+            num_threads=THREADS, verbose=False), device="cuda")
+        read_counts(kernels, "verify_rows")
+        stats = dict(engine.LAST_RUN_STATS)
+        single = dict(archive=os.path.getsize(arc),
+                      engine_s=stats["flush_wall_s"])
+        log(f"[main] single engine on one card: archive {single['archive']} "
+            f"bytes; engine: {engine_line(stats)}")
+        os.remove(arc)
+        dist_ranks_phase(fq, arc, out, single, card, total)
+    log(json.dumps({"phase_9_launches": total}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def need_compactions(what: str, stats: dict) -> None:
@@ -910,14 +1048,18 @@ def kernel_phases():
             f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({r['bytes']} "
             f"bytes at {HBM_BYTES_PER_S:.3g} B/s, {r['ops']} operations "
             f"at {ALU_OPS_PER_S:.3g}/s) on {card}")
-    for key in ("at_10M_reads", "at_100M_reads"):
-        r = kres["verify_rows"][key]
-        log(f"[kernel] verify_rows {key} ({r['shape']}): equal to its "
+    for name, key in (("verify_rows", "at_10M_reads"),
+                      ("verify_rows", "at_100M_reads"),
+                      ("masked_hamming_rows", "at_10M_dist_round")):
+        r = kres[name][key]
+        accepted = (f"; accepted {r['accepted']} of {8192 * 16} slots"
+                    if "accepted" in r else "")
+        log(f"[kernel] {name} {key} ({r['shape']}): equal to its "
             f"plain version; device {r['ms']:.5f} ms a launch, wrapper "
             f"enqueue {r['enqueue_ms']:.5f} ms, plain {r['plain_ms']:.5f} "
             f"ms; bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
-            f"({r['bytes']} bytes, {r['ops']} operations); accepted "
-            f"{r['accepted']} of {8192 * 16} slots; on {card}")
+            f"({r['bytes']} bytes, {r['ops']} operations){accepted}; on "
+            f"{card}")
     log(f"[kernel] an empty kernel timed the same way: "
         f"{kernels.launch_floor_device_ms():.5f} ms a launch on {card}")
     log(f"[kernel] verify_rows accepted "
@@ -1167,42 +1309,6 @@ def main() -> int:
         log(f"[mode] pe range [{lo}, {hi}): equal to the slice of the input")
 
         # ---- phases 8 and 9: the distributed engine over NCCL
-        def dist_report(tag, n, secs, launches, peak, stats):
-            """Check one distributed 1M-read compress (the archive is at
-            ``arc``) and print its numbers."""
-            api.decompress(arc, [out], num_threads=THREADS, verbose=False)
-            same_bytes(fq, out, f"{tag} round trip")
-            size = os.path.getsize(arc)
-            if abs(size - single["archive"]) > (0.05 * single["archive"]
-                                                + 10240):
-                raise AssertionError(
-                    f"{tag}: archive {size} bytes against the single "
-                    f"engine's {single['archive']}")
-            if (launches != stats["rounds_run"]
-                    or stats["collectives_per_round"] != 7
-                    or stats["world_size"] != n):
-                raise AssertionError(
-                    f"{tag}: {launches} launches of masked_hamming_rows, "
-                    f"engine {stats}")
-            need_graphs(tag, stats)
-            log(f"[{tag}] world size {n} over NCCL: compress {secs:.3f} s = "
-                f"{N_READS / secs:.1f} reads/s; round trip byte-exact; "
-                f"rounds {stats['rounds']} ({stats['rounds_run']} run); "
-                f"{stats['ms_per_round']} ms a round; unmatched fraction "
-                f"{stats.get('unmatched_frac')}; archive {size} bytes "
-                f"(single engine {single['archive']}); peak device memory "
-                f"{peak} bytes; collectives a round "
-                f"{stats['collectives_per_round']} ({stats['collectives']} "
-                f"in all, counted at each replay; host time inside them not "
-                f"measured: graphs replay them with no host call); "
-                f"masked_hamming_rows launches {launches}; engine "
-                f"{stats['flush_wall_s']} s = "
-                f"{stats['flush_wall_s'] / single['engine_s']:.3f} of the "
-                f"single engine's {single['engine_s']} s; engine: "
-                f"{engine_line(stats)}; on {card}")
-            os.remove(arc)
-            os.remove(out)
-
         world = multihost.initialize(0, 1, os.path.join(tmp, "store"),
                                      device="cuda", timeout=600.0)
         try:
@@ -1229,36 +1335,11 @@ def main() -> int:
                     num_threads=THREADS, verbose=False, dist=True))
             single["dist_archive"] = os.path.getsize(arc)
             dist_report("dist", 1, comp_s, launches,
-                        torch.cuda.max_memory_allocated(), stats)
+                        torch.cuda.max_memory_allocated(), stats, fq, arc,
+                        out, single, card)
         finally:
             multihost.shutdown()
-
-        cards = torch.cuda.device_count()
-        if cards < 2:
-            log("[dist-n] skipped: one card is visible, and the ranks of a "
-                "world take one card each")
-        else:
-            n = 4 if cards >= 4 else 2
-            res = multihost.launch(dist_rank, n, (fq, arc, THREADS),
-                                   device="cuda", timeout=900.0)
-            digests = {r[3]["emissions_sha256"] for r in res}
-            if len(digests) != 1:
-                raise AssertionError(f"emissions differ between the {n} "
-                                     "ranks")
-            log(f"[dist-n] emissions equal on all {n} ranks (each a fresh "
-                "process: its compress seconds include CUDA and NCCL "
-                "start-up)")
-            for r in res:
-                if r[1]["masked_hamming_rows"] != r[3]["rounds_run"]:
-                    raise AssertionError(
-                        f"a rank launched masked_hamming_rows "
-                        f"{r[1]['masked_hamming_rows']} times in "
-                        f"{r[3]['rounds_run']} rounds")
-                for name, k in r[1].items():
-                    total[name] += k
-            secs, counts, peak, stats = res[0]
-            dist_report("dist-n", n, secs, counts["masked_hamming_rows"],
-                        peak, stats)
+        dist_ranks_phase(fq, arc, out, single, card, total)
 
         # ---- phase 10: 2M reads, compressed twice in this process: the
         # first call stages its rows and prewarms the dictionary build,
@@ -1334,7 +1415,7 @@ def main() -> int:
             "ms": r["ms"], "enqueue_ms": r["enqueue_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None}
-        for key in ("at_10M_reads", "at_100M_reads"):
+        for key in ("at_10M_reads", "at_100M_reads", "at_10M_dist_round"):
             if key in r:
                 out[key] = {k: r[key][k] for k in (
                     "shape", "ms", "enqueue_ms", "plain_ms", "bound_ms",

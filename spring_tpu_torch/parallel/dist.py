@@ -186,7 +186,10 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
                    capf: float,
                    flush_rounds: int = eng.FLUSH_ROUNDS) -> dict:
     """The build, compact, flush and flush-runner functions of one rank
-    for one static shape signature, and the sizes that follow from it. The
+    for one static shape signature, and the sizes that follow from it
+    (``exchange``: the per-destination capacities of the key, probe,
+    candidate and row exchanges, the entries R of this rank's merged
+    table and its buckets S). The
     collectives go through ``ctx["world"]``: an engine that takes this
     program's runner from the cache puts its own World (of the same
     group) there."""
@@ -235,27 +238,37 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
     # ---------------- sharded dictionary build ----------------
 
     def build_fn(rows_local):
+        # each temporary goes as soon as it is used (as in
+        # dct._hash_build_core), so that the routing's tables are gone
+        # before the hash build's peak
         dev = rows_local.device
         lengths = rows_local[:, W] & 0x7FFFFFFF
-        rid0 = me * Npl + torch.arange(Npl, dtype=torch.int32, device=dev)
-        ks, rs, vs = [], [], []
+        ks, vs = [], []
         for d, st in enumerate(starts):
             w0, b = divmod(st, 16)
             lo = bits.srl(rows_local[:, w0], 2 * b)
             if b:
                 lo = lo | (rows_local[:, w0 + 1] << (32 - 2 * b))
             ks.append(lo ^ int(salts[d]))
-            rs.append(rid0)
             # padding rows carry length 0, so the window check excludes
             # them along with genuinely short reads
             vs.append(lengths >= st + dct.KEY_BASES)
-        keys = torch.cat(ks)
-        sends, _ = _dispatch((keys, torch.cat(rs)), _owner_of_key(keys, n),
-                             torch.cat(vs), n, capk)
+        del lengths, lo
+        keys, valid = torch.cat(ks), torch.cat(vs)
+        del ks, vs
+        rids = (me * Npl + torch.arange(Npl, dtype=torch.int32, device=dev)
+                ).repeat(D)
+        sends, _ = _dispatch((keys, rids), _owner_of_key(keys, n), valid, n,
+                             capk)
+        del keys, rids, valid
         rk = a2a(sends[0])
         rr = a2a(sends[1])
+        del sends
+        keys_u = bits.u32(rk)
+        del rk
         btab, h_s, rids_s, dropped = dct._hash_build_core(
-            bits.u32(rk), rr >= 0, S, compact=True, rids=rr)
+            keys_u, rr >= 0, S, compact=True, rids=rr)
+        del keys_u, rr
         return (btab, h_s, rids_s, dct.pairs_from_rids(rids_s),
                 dropped.reshape(1))
 
@@ -575,7 +588,9 @@ def _dist_programs(world: mh.World, Np: int, W: int, B: int, C: int,
         return (runner.state, *runner.flush())
 
     return dict(build=build_fn, compact=compact_fn, flush=flush_fn,
-                runner=flush_runner, CAP=CAP, Bl=Bl, Npl=Npl, M=M)
+                runner=flush_runner, CAP=CAP, Bl=Bl, Npl=Npl, M=M,
+                exchange=dict(capk=capk, capq=capq, capc=capc, capr=capr,
+                              R=R, S=S))
 
 
 class DistReorderEngine:
@@ -696,7 +711,8 @@ class DistReorderEngine:
         rows_dev = mh.put_sharded(w, self.packed)
         # the merged table's sorted keys and rids stay for compaction
         btab, keys_l, rids_l, pairs, dropped = prog["build"](rows_dev)
-        nd = int(mh.to_host(w, dropped).sum())
+        dropped = mh.to_host(w, dropped).tolist()     # a rank each
+        nd = sum(dropped)
         if nd:
             print(f"[dict] {nd} keys overflowed the sharded hash tables "
                   "and were dropped", file=sys.stderr)
@@ -821,7 +837,13 @@ class DistReorderEngine:
                 round_collectives / (runner.flushes * flush_rounds), 3),
             **rstats, program_cache="hit" if hit else "miss",
             eager_rounds=runner.eager_rounds,
-            cached_program_bytes=graphs.cached_program_bytes(w.device))
+            cached_program_bytes=graphs.cached_program_bytes(w.device),
+            Np=self.Np, dict_dropped=dropped,
+            # host seconds inside the collectives called, not replayed
+            # (a graphed run's: the build's exchange, the called round,
+            # the stats' gathers)
+            world_collective_s=round(w.collective_s - collective_s0, 4),
+            exchange=prog["exchange"])
         return out
 
 

@@ -90,6 +90,21 @@ def test_build_peak_on_cpu():
     assert rec["read_dict"]["sha256"] != rec["read_dict_wide"]["sha256"]
 
 
+def test_build_peak_dist_on_cpu():
+    """--dist-ranks: rank 0's distributed build at the engine's Np (the
+    power of two at or above --reads) over a world of that size."""
+    res = subprocess.run([sys.executable, PEAK, "--device", "cpu",
+                          "--reads", "5000", "--dist-ranks", "4"],
+                         capture_output=True, text=True, timeout=600, env=ENV)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert (rec["Np"], rec["ranks"], rec["walkers"]) == (8192, 4, 32)
+    assert rec["exchange"]["R"] == 4 * rec["exchange"]["capk"]
+    assert "read_dict" not in rec
+    assert rec["dist_build"]["peak_over_input_bytes"] is None
+    assert len(rec["dist_build"]["sha256"]) == 64
+
+
 @pytest.mark.parametrize("tool", [TOOL, PEAK])
 def test_tools_import_nothing_of_jax(tool):
     imp = re.compile(r"^\s*(from|import)\s+(jax|spring_tpu)(\.|\s|$)")

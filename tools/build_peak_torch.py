@@ -19,6 +19,14 @@ compare. ``--root DIR`` imports spring_tpu_torch from DIR (a ``git
 archive`` of another commit). The card's name and power limit head the
 output; the last line is one JSON object. ``--device cpu --reads 5000``
 rehearses it here (peaks are null: the CPU keeps no such count).
+
+``--dist-ranks N`` measures instead the distributed engine's build
+(parallel/dist.py, ``_dist_programs(...)["build"]``) of rank 0 of N ranks
+at that engine's Np (the power of two at or above --reads) and walkers,
+on Np / N rows made as above, in a world of N ranks with no process
+group: its two exchanges return what this rank sends, so that it builds
+over as many entries (N * capk slots, D * Np / N keys) as a rank of a
+real group would.
 """
 import argparse
 import hashlib
@@ -36,6 +44,7 @@ def main(argv=None) -> int:
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--dist-ranks", type=int, default=0)
     a = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(a.root))
     import torch
@@ -70,15 +79,42 @@ def main(argv=None) -> int:
         print(f"{name}: {json.dumps(rec)}", flush=True)
         return rec
 
+    def make_rows(n_rows, n_real):
+        rows = torch.randint(-2**31, 2**31 - 1, (max(n // 50, 1), 8),
+                             generator=g, dtype=torch.int32, device=dev)
+        rows = rows[torch.randint(0, rows.shape[0], (n_rows,), generator=g,
+                                  device=dev)]
+        rows[:, 7] = 100
+        rows[n_real:, 7] = -2**31
+        return rows
+
     n = a.reads
-    Np = eng.padded_n(n)
     g = torch.Generator(device=dev).manual_seed(a.seed)
-    rows = torch.randint(-2**31, 2**31 - 1, (max(n // 50, 1), 8),
-                         generator=g, dtype=torch.int32, device=dev)
-    rows = rows[torch.randint(0, rows.shape[0], (Np,), generator=g,
-                              device=dev)]
-    rows[:, 7] = 100
-    rows[n:, 7] = -2**31
+    if a.dist_ranks:
+        from spring_tpu_torch.parallel import dist, multihost
+        k = a.dist_ranks
+        Np = max(1 << max(n - 1, 1).bit_length(), 64 * k)
+        B = min(8192, max(8 * k, Np // 256)) // k * k
+        cfg = dist.DistConfig(max_readlen=100)
+        prog = dist._dist_programs(
+            multihost.World(None, 0, k, dev), Np, 7, B, cfg.candidates,
+            cfg.shift_chunk, cfg.accept_slots,
+            tuple(w.start for w in dct.default_windows(100)), cfg.thresh,
+            cfg.capacity_factor)
+        rows = make_rows(Np // k, n)
+        res = dict(reads=n, Np=Np, ranks=k, walkers=B,
+                   exchange=prog.get("exchange"),
+                   root=os.path.abspath(a.root), device=a.device)
+
+        def build():        # dropped fourth, as run() reads it
+            btab, keys, rids, pairs, dropped = prog["build"](rows)
+            return btab, keys, rids, dropped, pairs
+
+        res["dist_build"] = run(f"distributed build, rank 0 of {k}", build)
+        print(json.dumps(res), flush=True)
+        return 0
+    Np = eng.padded_n(n)
+    rows = make_rows(Np, n)
     S = dct.table_buckets(Np)
     res = dict(reads=n, Np=Np, buckets=S, root=os.path.abspath(a.root),
                device=a.device)
