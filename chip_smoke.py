@@ -438,6 +438,21 @@ def check_kernel(torch, kernels, thresh):
         enqueue_ms=cuda_ms(torch, lambda: kernels.masked_hamming_rows(
             fr, rows, lo, hi)),
         plain_ms=cuda_ms(torch, plain_rows))
+    # ---- a rank's quarter of those walkers, the round's shape on four
+    # ranks at 10M and at 100M reads (tools/bench_dist_torch.py ranks 4)
+    Bq = B8 // 4
+    fr, rows, lo, hi = (fr[:Bq].contiguous(), rows[:Bq].contiguous(),
+                        lo[:Bq].contiguous(), hi[:Bq].contiguous())
+    same("masked_hamming_rows at_100M_dist_round_4_ranks",
+         [kernels.masked_hamming_rows(fr, rows, lo, hi)], [plain_rows()])
+    out["masked_hamming_rows"]["at_100M_dist_round_4_ranks"] = dict(
+        shape=f"B={Bq} M={M} W={W} rows stride {W + 1}",
+        **kernel_bound(Bq * M, W),
+        ms=kernels.masked_hamming_device_ms(fr, rows, lo, hi,
+                                            row_major=True),
+        enqueue_ms=cuda_ms(torch, lambda: kernels.masked_hamming_rows(
+            fr, rows, lo, hi)),
+        plain_ms=cuda_ms(torch, plain_rows))
     del fr, rw, lo, hi, lw, rows
     # ---- word-major (W, B, K), the JAX kernel's layout and microbench
     # shape
@@ -1050,7 +1065,8 @@ def kernel_phases():
             f"at {ALU_OPS_PER_S:.3g}/s) on {card}")
     for name, key in (("verify_rows", "at_10M_reads"),
                       ("verify_rows", "at_100M_reads"),
-                      ("masked_hamming_rows", "at_10M_dist_round")):
+                      ("masked_hamming_rows", "at_10M_dist_round"),
+                      ("masked_hamming_rows", "at_100M_dist_round_4_ranks")):
         r = kres[name][key]
         accepted = (f"; accepted {r['accepted']} of {8192 * 16} slots"
                     if "accepted" in r else "")
@@ -1415,7 +1431,8 @@ def main() -> int:
             "ms": r["ms"], "enqueue_ms": r["enqueue_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None}
-        for key in ("at_10M_reads", "at_100M_reads", "at_10M_dist_round"):
+        for key in ("at_10M_reads", "at_100M_reads", "at_10M_dist_round",
+                    "at_100M_dist_round_4_ranks"):
             if key in r:
                 out[key] = {k: r[key][k] for k in (
                     "shape", "ms", "enqueue_ms", "plain_ms", "bound_ms",

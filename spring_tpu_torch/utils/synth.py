@@ -1,4 +1,5 @@
-"""Copied from spring_tpu/utils/synth.py; only the imports differ.
+"""Copied from spring_tpu/utils/synth.py; only the imports differ, and
+make_se_fast (make_se's file, made faster) is the port's own.
 
 Synthetic FASTQ dataset generator for benchmarks and A/B tests.
 
@@ -21,9 +22,13 @@ index, "illumina" = tile/x/y coordinate ids).
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 QLEVELS = b"#,7<BFIJ"  # Illumina 8-level-like bins
+CHUNK_READS = 2_000_000  # make_se's reads a chunk of draws
 
 
 def _quals(rng: np.random.Generator, n: int, read_len: int,
@@ -129,7 +134,7 @@ def make_se(path: str, n_reads: int, read_len: int = 100,
     # chunked generation: the float64 normals behind the quality model
     # are 8 bytes/base — one whole-dataset draw at 100M x 100 bp is
     # ~80 GB of transient; 2M-read chunks keep it ~1.6 GB
-    chunk = 2_000_000
+    chunk = CHUNK_READS
     mode = "wb"
     for c0 in range(0, n_reads, chunk):
         nc = min(chunk, n_reads - c0)
@@ -210,3 +215,101 @@ def make_pe(path1: str, path2: str, n_pairs: int, read_len: int = 100,
         lens = (rng.integers(len_range[0], len_range[1] + 1, size=n_pairs)
                 .astype(np.int32) if len_range is not None else None)
         _write_fastq(pth, chars, quals, ids, lens)
+
+
+def _affine_records(first: int, chars: np.ndarray,
+                    quals: np.ndarray) -> bytes:
+    """_write_fastq's bytes for fixed-length reads with affine single-end
+    ids numbered from ``first``, laid out as whole arrays (one row a
+    record, one block of rows a count of digits)."""
+    n, L = chars.shape
+    tail = np.frombuffer(f" length={L}\n".encode(), np.uint8)
+    mid = np.frombuffer(b"\n+\n", np.uint8)
+    g = np.arange(first, first + n, dtype=np.int64)
+    out = []
+    i = 0
+    while i < n:
+        d = len(str(int(g[i])))
+        j = int(np.searchsorted(g, 10 ** d))
+        num = np.empty((j - i, d), np.uint8)
+        rest = g[i:j].copy()
+        for k in range(d - 1, -1, -1):
+            num[:, k] = rest % 10 + 48
+            rest //= 10
+        cols = [np.broadcast_to(np.frombuffer(b"@SYN.", np.uint8),
+                                (j - i, 5)), num,
+                np.full((j - i, 1), 32, np.uint8), num,
+                np.broadcast_to(tail, (j - i, len(tail))), chars[i:j],
+                np.broadcast_to(mid, (j - i, 3)), quals[i:j],
+                np.full((j - i, 1), 10, np.uint8)]
+        out.append(np.concatenate(cols, axis=1).tobytes())
+        i = j
+    return b"".join(out)
+
+
+def _affine_bytes(first: int, n: int, read_len: int) -> int:
+    """Bytes of n such records numbered from ``first``."""
+    fixed = 5 + 1 + len(f" length={read_len}\n") + 2 * read_len + 4
+    total = n * fixed
+    d = 1
+    while 10 ** (d - 1) < first + n:
+        lo, hi = max(first, 10 ** (d - 1)), min(first + n, 10 ** d)
+        total += 2 * d * max(0, hi - lo)
+        d += 1
+    return total
+
+
+def make_se_fast(path: str, n_reads: int, read_len: int = 100,
+                 genome_size: int = 2_000_000, seed: int = 42,
+                 workers: int = 4) -> None:
+    """make_se's file for its default profile (fixed-length reads, 1%
+    substitutions, 8 quality levels, no N, affine ids), byte for byte,
+    made faster: this thread draws the random numbers in make_se's order
+    and ``workers`` threads build and write each 2M-read chunk's records
+    at its offset, which the read count alone fixes."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, size=genome_size, dtype=np.int8)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    qlevels = np.frombuffer(QLEVELS, dtype=np.uint8)
+    loc = 6.0 - np.arange(read_len) / 40.0
+    chunk = CHUNK_READS
+    fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+
+    def build(c0, off, starts, er, ec, errs, rc, q):
+        reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
+        reads[er, ec] = (reads[er, ec] + errs) % 4
+        reads[rc] = 3 - reads[rc][:, ::-1]
+        # make_se truncates to int32, then clips to [0, 7]: clipping the
+        # float first gives the same levels
+        np.clip(q, 0, 7, out=q)
+        buf = memoryview(_affine_records(c0 + 1, acgt[reads],
+                                         qlevels[q.astype(np.uint8)]))
+        while len(buf):
+            k = os.pwrite(fd, buf, off)
+            buf, off = buf[k:], off + k
+
+    try:
+        with ThreadPoolExecutor(max_workers=max(1, workers)) as ex:
+            futs = []
+            off = 0
+            for c0 in range(0, n_reads, chunk):
+                nc = min(chunk, n_reads - c0)
+                starts = rng.integers(0, genome_size - read_len, size=nc)
+                nerr = int(0.01 * nc * read_len)
+                er = rng.integers(0, nc, size=nerr)
+                ec = rng.integers(0, read_len, size=nerr)
+                errs = rng.integers(1, 4, size=nerr)
+                rc = rng.random(nc) < 0.5
+                q = rng.normal(loc, 1.2, size=(nc, read_len))
+                futs.append(ex.submit(build, c0, off, starts, er, ec, errs,
+                                      rc, q))
+                del q
+                off += _affine_bytes(c0 + 1, nc, read_len)
+                # at most one chunk a worker, and the next, in flight
+                while len(futs) > max(1, workers):
+                    futs.pop(0).result()
+            for f in futs:
+                f.result()
+        os.ftruncate(fd, off)
+    finally:
+        os.close(fd)

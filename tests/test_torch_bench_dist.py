@@ -155,3 +155,141 @@ def test_tool_imports_nothing_of_jax():
     bad = [line for line in src.splitlines()
            if imp.match(line) or "SPRING_TPU_" in line.split("#", 1)[0]]
     assert not bad, bad
+
+
+def test_ranks_mode_one_pass_on_the_cpu(fq, tmp_path):
+    """``ranks 2 --passes 1``, the 100M run's form: a program-cache miss
+    a rank, the host RSS by stage and its progress file a rank."""
+    out = tmp_path / "rec.jsonl"
+    res = subprocess.run(
+        [sys.executable, TOOL, "ranks", "2", fq, "--device", "cpu",
+         "--threads", "2", "--passes", "1",
+         "--work", str(tmp_path / "w"), "--out", str(out)],
+        capture_output=True, text=True, timeout=600, env=ENV)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rec = _last_line(res.stdout)
+    assert rec["ok"] and rec["failures"] == []
+    assert (rec["ranks"], rec["passes"], rec["threads"]) == (2, 1, 2)
+    assert rec["emissions_equal"] and rec["roundtrip_ok"]
+    assert rec["compare"] == "cmp" and rec["decompress_s"] > 0
+    assert rec["input_bytes"] == os.path.getsize(fq) and rec["seed"] is None
+    assert "Filesystem" in res.stderr and "Mem:" in res.stderr  # df, free
+    for r, pr in enumerate(rec["per_rank"]):
+        assert len(pr["seconds"]) == 1
+        assert pr["best_s"] == pr["seconds"][0]
+        assert [p["program_cache"] for p in pr["passes"]] == ["miss"]
+        assert (pr["B"], pr["Bl"], pr["world_size"]) == (16, 8, 2)
+        assert set(pr["exchange"]) == {"capk", "capq", "capc", "capr", "R",
+                                       "S"}
+        host = pr["passes"][0]["host_rss_gb_by_stage"]
+        assert host and all(v > 0 for v in host.values())
+        with open(f"{out}.rank{r}.progress") as f:
+            assert json.load(f)["passes"] == [host]
+    assert rec["best_s"] == max(pr["best_s"] for pr in rec["per_rank"])
+    assert set(os.listdir(tmp_path / "w")) == set()
+
+
+def _no_room(monkeypatch):
+    """The work directory's file system without room for an output
+    beside the input, and 4 KiB chunks."""
+    free = tool.shutil.disk_usage
+
+    def usage(path):
+        return free(path)._replace(free=0)
+
+    monkeypatch.setattr(tool.shutil, "disk_usage", usage)
+    monkeypatch.setattr(sys.modules["rss_check_torch"], "CHUNK", 4096)
+
+
+def _flip(path, at):
+    with open(path, "r+b") as f:
+        f.seek(at)
+        b = f.read(1)
+        f.seek(at)
+        f.write(bytes([b[0] ^ 1]))
+
+
+@pytest.mark.parametrize("made,flip", [(False, None), (True, None),
+                                       (False, 3 * 4096 + 17)])
+def test_chunked_round_trip(fq, tmp_path, monkeypatch, made, flip):
+    """Without room for the output the round trip compares SHA-256 sums
+    of chunks: equal output passes, one flipped byte past the first chunk
+    fails, and a made input is deleted before the output is written."""
+    from spring_tpu_torch import api
+    _no_room(monkeypatch)
+    src = tmp_path / "in.fastq"
+    src.write_bytes(open(fq, "rb").read())
+
+    def decompress(arc, outs, **kw):
+        assert src.exists() != made
+        with open(fq, "rb") as a, open(outs[0], "wb") as b:
+            b.write(a.read())
+        if flip is not None:
+            _flip(outs[0], flip)
+
+    monkeypatch.setattr(api, "decompress", decompress)
+    rt = tool.round_trip(str(src), "unused.stpu", str(tmp_path), 1, made)
+    assert rt["compare"] == "sha256"
+    assert rt["roundtrip_ok"] is (flip is None)
+    assert os.listdir(tmp_path) == ([] if made else ["in.fastq"])
+
+
+def test_chunked_round_trip_mismatch_exits_non_zero(fq, tmp_path, capsys,
+                                                    monkeypatch):
+    """A real decompress, one byte flipped past the first chunk of its
+    output: the chunk comparison sees it and the run exits 1."""
+    from spring_tpu_torch import api
+    _no_room(monkeypatch)
+    real = api.decompress
+
+    def corrupt(arc, outs, **kw):
+        real(arc, outs, **kw)
+        _flip(outs[0], 3 * 4096 + 17)
+
+    monkeypatch.setattr(api, "decompress", corrupt)
+    rc = tool.main(["chip", fq, "--device", "cpu", "--threads", "2",
+                    "--passes", "1", "--work", str(tmp_path)])
+    rec = _last_line(capsys.readouterr().out)
+    assert rc == 1 and not rec["ok"]
+    assert rec["failures"] == ["default: the round trip differs from the "
+                               "input"]
+    assert not tdistributed.is_initialized()
+
+
+def test_threads_default_to_the_cores_over_the_ranks(fq, tmp_path,
+                                                     monkeypatch):
+    monkeypatch.setattr(os, "cpu_count", lambda: 32)
+    assert tool.default_threads("ranks", 4) == 8
+    assert tool.default_threads("ranks", 64) == 1
+    assert tool.default_threads("chip", 1) == 32
+    seen = {}
+
+    def ranks(n, fq_, work, threads, *a):
+        seen["threads"] = threads
+        return dict(per_rank=[]), []
+
+    monkeypatch.setattr(tool, "ranks", ranks)
+    assert tool.main(["ranks", "4", fq, "--device", "cpu",
+                      "--work", str(tmp_path)]) == 0
+    assert seen["threads"] == 8
+
+
+def test_fast_synth_writes_make_se_bytes(tmp_path, monkeypatch):
+    """synth.make_se_fast, the tool's input maker, against make_se: the
+    JAX package's at the 2M-read chunk, the port's own over many small
+    chunks (across id widths 1-5 digits and chunk ends)."""
+    from spring_tpu.utils import synth as jsynth
+    from spring_tpu_torch.utils import synth as tsynth
+
+    def same(n, seed, genome, workers):
+        a, b = tmp_path / "a.fq", tmp_path / "b.fq"
+        tsynth.make_se_fast(str(a), n, genome_size=genome, seed=seed,
+                            workers=workers)
+        (jsynth if tsynth.CHUNK_READS == 2_000_000 else tsynth).make_se(
+            str(b), n, genome_size=genome, seed=seed)
+        assert a.read_bytes() == b.read_bytes()
+
+    same(12_345, 5, 2_000_000, 3)
+    monkeypatch.setattr(tsynth, "CHUNK_READS", 999)
+    same(10_123, 42, 9000, 4)
+    same(1, 3, 500, 1)

@@ -169,12 +169,13 @@ def chunk_sums(path: str) -> list:
             out.append(hashlib.sha256(b).hexdigest())
 
 
-def show(cmd: list) -> None:
+def show(cmd: list, say=log) -> None:
+    """Pass the output of cmd to ``say`` (default: standard output)."""
     try:
-        log(subprocess.run(cmd, capture_output=True, text=True,
+        say(subprocess.run(cmd, capture_output=True, text=True,
                            timeout=60).stdout.rstrip())
     except FileNotFoundError:
-        log(f"({cmd[0]} not found)")
+        say(f"({cmd[0]} not found)")
 
 
 def card_line() -> str:
