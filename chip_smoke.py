@@ -105,7 +105,15 @@ Phases, each printing its numbers on a line of its own:
      the card against the port's CPU path, exactly equal, on a consensus
      of 2^25 + 2^20 bases (three segment dictionaries) and 20,000 reads,
      without and with stitching's exclude, each segment's matcher loop
-     replayed (segments_phase).
+     replayed (segments_phase);
+ 14. the engine-sweep tools on phase 4's 16,384 reads (sweep_phase):
+     tools/knob_sweep_torch.py's flushes of baseline and shift_chunk=8 on
+     the card equal to the same on the CPU (each flush's stats, the
+     claimed reads), and tools/sweep_probe_torch.py on the card with
+     base= and fn4=far_near:4, two passes each and its default check:
+     every archive byte-equal to the CPU path's with the same engine
+     dict, round trips byte-exact. Its launches stay out of the kernels
+     line.
 Every engine run on the card (phases 4-11) runs its flushes on the flush
 runner (spring_tpu_torch/reorder/engine.py) from the program cache
 (spring_tpu_torch/ops/graphs.py): on a miss the first round called, then
@@ -1021,6 +1029,84 @@ def segments_phase(card) -> dict:
     return out
 
 
+def sweep_phase(card) -> None:
+    """Phase 14: the engine-sweep tools (tools/knob_sweep_torch.py,
+    tools/sweep_probe_torch.py) on phase 4's 16,384 reads. The knob
+    tool's flushes of baseline and shift_chunk=8 on the card (the first
+    captured, the others replayed) against the same on the CPU: each
+    flush's stats and the claimed reads equal. Then the sweep tool on the
+    card, configs base= and fn4=far_near:4, two passes each, with its
+    default check (a fresh process's default compress): exit 0, every
+    round trip byte-exact, and each archive byte-equal to the CPU path's
+    compress with the same CompressOptions.engine."""
+    import hashlib
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import knob_sweep_torch as knob
+    import sweep_probe_torch as sweep
+    from spring_tpu_torch import api
+    from spring_tpu_torch.io import fastq_native
+    from spring_tpu_torch.utils import synth
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sweep_") as tmp:
+        fq = os.path.join(tmp, "small.fastq")
+        synth.make_se(fq, N_SMALL, read_len=100, genome_size=40_000, seed=7,
+                      n_rate=0.0005)
+        arrs = fastq_native.load_file(fq, want_quals=False)
+        packed = fastq_native.pack_2bit(arrs.codes, THREADS)
+        for spec in ("baseline", "shift_chunk=8"):
+            kw = knob.parse_variant(spec)
+            got = knob.flush_variant(packed, arrs.lengths, arrs.maxlen, kw,
+                                     "cuda")
+            want = knob.flush_variant(packed, arrs.lengths, arrs.maxlen, kw,
+                                      "cpu")
+            if (got["stats"], got["claimed"]) != (want["stats"],
+                                                  want["claimed"]):
+                raise AssertionError(
+                    f"phase 14 knob {spec}: card stats {got['stats']} "
+                    f"claimed {got['claimed']}, CPU {want['stats']} "
+                    f"claimed {want['claimed']}")
+            if got["capture_s"] is None:
+                raise AssertionError(f"phase 14 knob {spec}: the card's "
+                                     "flush captured nothing")
+            log(f"[sweep] knob {spec}: B {got['B']} SC {got['SC']} M "
+                f"{got['M']} C {got['C']}: card equal to the CPU path "
+                f"(stats {got['stats']}, claimed {got['claimed']}); "
+                f"{got['ms_a_round']} ms a replayed round, capture "
+                f"{got['capture_s']} s; on {card}")
+        out = os.path.join(tmp, "sweep.jsonl")
+        configs = ("base=", "fn4=far_near:4")
+        rc = sweep.main([fq, *configs, "--device", "cuda", "--passes", "2",
+                         "--threads", str(THREADS), "--check-default",
+                         "--work", os.path.join(tmp, "w"), "--out", out])
+        with open(out) as f:
+            lines = [json.loads(x) for x in f]
+        recs, summary = lines[1:-1], lines[-1]
+        if rc or not summary["ok"] or len(recs) != len(configs):
+            raise AssertionError(f"phase 14 sweep: exit {rc}, failures "
+                                 f"{summary['failures']}")
+        for r in recs:
+            ref = os.path.join(tmp, "cpu.stpu")
+            api.compress([fq], ref, api.CompressOptions(
+                num_threads=THREADS, verbose=False, engine=r["engine"]),
+                device="cpu")
+            with open(ref, "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != r[
+                        "archive_sha256"]:
+                    raise AssertionError(
+                        f"phase 14 sweep {r['config']}: the card's archive "
+                        "differs from the CPU path's")
+            os.remove(ref)
+            log(f"[sweep] probe {r['config']} {r['engine']}: archive "
+                f"{r['archive_bytes']} bytes byte-equal to the CPU path's, "
+                f"round trip {r['round_trip']}; best {r['best_s']} s, "
+                f"passes {[p['program_cache'] for p in r['passes']]}; "
+                f"rounds {r['run']['rounds']}, "
+                f"{r['run']['ms_per_graphed_round']} ms a replayed round; "
+                f"on {card}")
+        log(f"[sweep] default check {json.dumps(summary['default_check'])}")
+
+
 def kernel_phases():
     """Phases 1-3: the card, the builds, every kernel entry against its
     plain version. Returns (card line, device name, kernel entries)."""
@@ -1420,6 +1506,10 @@ def main() -> int:
 
     # ---- phase 13: the multi-segment consensus match
     segments = segments_phase(card)
+
+    # ---- phase 14: the engine-sweep tools (their launches are not the
+    # main path's and stay out of the kernels line)
+    sweep_phase(card)
 
     def entry(name, launches):
         r = kres[name]
