@@ -40,6 +40,7 @@ from ..io.ids import check_id_pattern, find_id_pattern, modify_id
 from ..ops import graphs
 from ..reorder import dictionary as dct
 from ..reorder import engine as eng
+from ..utils import spans
 from . import qualstream
 from . import quality as qual_mod
 
@@ -121,6 +122,14 @@ LAST_STAGE_PEAK_BYTES: dict[str, int] = {}
 # the same for the reserved bytes (torch.cuda.max_memory_reserved): the
 # allocator's cache and the graph pools beside the tensors
 LAST_STAGE_RESERVED_BYTES: dict[str, int] = {}
+# the layer of each stage's span (utils/spans.py)
+STAGE_LAYERS = {
+    "scan": "io", "load+parse": "io", "quantize+idcheck": "io",
+    "dict_build": "reorder", "reorder_run": "reorder",
+    "assemble_contigs": "encode", "consensus": "encode", "stitch": "encode",
+    "noise": "encode", "second_chance": "encode",
+    "block_streams_submit": "codecs", "qbins_join": "codecs",
+    "codec+write": "codecs"}
 
 
 def compress_short(files: list[str], writer: ArchiveWriter,
@@ -151,18 +160,23 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         LAST_STAGE_RESERVED_BYTES.clear()
         graphs.LOOP_STATS.clear()
         sc.SEGMENTS.clear()
-    _t = time.time()
+        spans.begin_compress()
+    _t = time.time_ns()
     card = torch.device(device).type == "cuda"
 
-    def mark(stage):
+    def mark(stage, key=None, **attrs):
+        """End the stage in progress: its span from the last mark to now,
+        and its seconds added to LAST_STAGE_SECONDS[key or stage]."""
         nonlocal _t
-        now = time.time()
-        LAST_STAGE_SECONDS[stage] = round(
-            LAST_STAGE_SECONDS.get(stage, 0.0) + (now - _t), 3)
+        now = time.time_ns()
+        key = key or stage
+        spans.close_stage(stage, STAGE_LAYERS[stage], _t, now, **attrs)
+        LAST_STAGE_SECONDS[key] = round(
+            LAST_STAGE_SECONDS.get(key, 0.0) + (now - _t) / 1e9, 3)
         if card:
-            LAST_STAGE_PEAK_BYTES[stage] = torch.cuda.max_memory_allocated(
+            LAST_STAGE_PEAK_BYTES[key] = torch.cuda.max_memory_allocated(
                 device)
-            LAST_STAGE_RESERVED_BYTES[stage] = (
+            LAST_STAGE_RESERVED_BYTES[key] = (
                 torch.cuda.max_memory_reserved(device))
         _t = now
 
@@ -233,9 +247,22 @@ def compress_short(files: list[str], writer: ArchiveWriter,
 
     def _sink(name, fn, *args):
         """Submit a codec task that writes its member when it completes
-        (the spooled writer is thread-safe and emits canonical order)."""
+        (the spooled writer is thread-safe and emits canonical order). The
+        task's span, a child of the submitting thread's stage, carries its
+        member's family, when it was submitted, the time inside
+        writer.add and the worker's CPU time."""
+        ctx, submit = spans.context(), time.time_ns()
+
         def run():
-            writer.add(name, fn(*args))
+            t0, cpu0 = time.time_ns(), time.thread_time_ns()
+            data = fn(*args)
+            t1 = time.time_ns()
+            writer.add(name, data)
+            t2 = time.time_ns()
+            spans.record("codec", "codecs", t0, t2, ctx,
+                         family=name.rsplit(".", 1)[0], submit_ns=submit,
+                         write_ns=t2 - t1,
+                         cpu_ns=time.thread_time_ns() - cpu0)
         futs.append(pool.submit(run))
 
     # codec tasks stay single-threaded while the device engine runs and
@@ -353,11 +380,14 @@ def compress_short(files: list[str], writer: ArchiveWriter,
         """Spool-backed quality compression on its own thread."""
         if spool is None or not sels:
             return
-        t = threading.Thread(
-            target=qualstream.drive_quality_bins,
-            args=(spool, _sink, sels, lengths, cp.quality_mode,
-                  table, cp.qvz_ratio, fine_pos, inflight_cap),
-            daemon=True)
+
+        def bins(ctx):      # its codec tasks: children of this stage
+            spans.adopt(ctx)
+            qualstream.drive_quality_bins(
+                spool, _sink, sels, lengths, cp.quality_mode, table,
+                cp.qvz_ratio, fine_pos, inflight_cap)
+        t = threading.Thread(target=bins, args=(spans.context(),),
+                             daemon=True)
         t.start()
         bin_threads.append(t)
 
@@ -389,7 +419,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     def _progress(_claimed, _total):
         _submit_deferred()
 
-    mark("quantize+idcheck")
+    mark("quantize+idcheck", what="pe_id_check")
     has_n = overlay.has_n_mask(n)
     clean_rids = np.nonzero(~has_n)[0].astype(np.int32)
 
@@ -483,7 +513,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
                     g = glay.rids
                     seq_codes = cons.build_consensus_packed(
                         glay, packed_all, lengths)
-                mark(f"stitch[{n_st}]")
+                mark("stitch", key=f"stitch[{n_st}]", n=n_st)
             if len(seq_codes) <= 2**31 - 1:     # guard below still fires
                 _submit_seq()
             nn, noisepos, noisechar = cons.extract_noise_packed(

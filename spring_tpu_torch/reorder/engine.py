@@ -33,6 +33,7 @@ import torch
 
 from .. import params as P
 from ..ops import bits, graphs, kernels
+from ..utils import spans
 from . import dictionary as dct
 
 # the defaults of ReorderConfig.flush_rounds (rounds between host syncs)
@@ -41,8 +42,11 @@ FLUSH_ROUNDS = 32
 CAP_PER_ROUND = 3
 _BIG = 2**31 - 1
 
-# stats of the most recent run(): rounds, flush wall, emitted rows, and
-# the flush runner's own (see FlushRunner.stats)
+# stats of the most recent run(): rounds, flush wall, emitted rows, the
+# flushes' device time (flush_device_s: CUDA events around each flush's
+# work, None on the CPU; a captured flush's holds its capture) and the
+# host's wait in the loop's device reads (flush_wait_s), and the flush
+# runner's own (see FlushRunner.stats)
 LAST_RUN_STATS: dict = {}
 
 
@@ -995,7 +999,48 @@ class ReorderEngine:
         dict_compact_s = 0.0
         flush_rounds = self.cfg.flush_rounds
         LAST_RUN_STATS.clear()
-        t_start = time.time()
+        t_start = time.time_ns()
+        waited = 0      # ns the host was blocked in the loop's device reads
+        device_ms = []  # each flush's device time, on a card
+
+        def read(t: torch.Tensor) -> np.ndarray:
+            """``t`` on the host; the wait counts into ``waited``."""
+            nonlocal waited
+            t0 = time.time_ns()
+            out = t.cpu().numpy()
+            waited += time.time_ns() - t0
+            return out
+
+        def dispatch():
+            """Enqueue a flush: its outputs, and for its span the dispatch's
+            start, how it ran and, on a card, a pair of timing events
+            recorded on the stream before and after its work."""
+            t0 = time.time_ns()
+            events = None
+            if dev.type == "cuda":
+                stream = torch.cuda.current_stream(dev)
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record(stream)
+            replays = runner.graphed_flushes
+            outs = runner.flush()
+            if events is not None:
+                events[1].record(stream)
+            mode = ("called" if not graphs.enabled(dev) else "replayed"
+                    if runner.graphed_flushes > replays else "captured")
+            return outs, (t0, mode, events)
+
+        def flush_span(meta, waited_from):
+            """The span of a flush whose stats the host has read, from its
+            dispatch to now: the device's time (the events are complete
+            once the stats have reached the host) and the host's wait in
+            the device reads since ``waited_from``."""
+            t0, mode, events = meta
+            ms = events[0].elapsed_time(events[1]) if events else None
+            if ms is not None:
+                device_ms.append(ms)
+            spans.record("flush", "reorder", t0, time.time_ns(), mode=mode,
+                         device_ms=ms, wait_ms=(waited - waited_from) / 1e6)
 
         def compact_dicts():
             """Compact the bins and rewrite their pair rows in place: the
@@ -1022,20 +1067,25 @@ class ReorderEngine:
         def harvest(dense_k, cnt_k, emitted):
             """(walker, rid, word) rows of one flush — the walker column
             rebuilt from the per-walker counts."""
-            cnt_np = cnt_k.cpu().numpy()
+            cnt_np = read(cnt_k)
             out = np.empty((emitted, 3), np.int32)
             out[:, 0] = np.repeat(np.arange(len(cnt_np), dtype=np.int32),
                                   cnt_np)
-            out[:, 1:] = dense_k[:emitted].cpu().numpy()
+            out[:, 1:] = read(dense_k[:emitted])
             return out
 
-        inflight = runner.flush()
+        inflight = dispatch()
         fetch_q = []
+        done = None     # the flush read last, its span left to record
         while True:
-            nxt = runner.flush()
-            dense_k, cnt_k, stats_k = inflight
+            if done is not None:
+                flush_span(*done)
+            nxt = dispatch()
+            (dense_k, cnt_k, stats_k), meta = inflight
             inflight = nxt
-            stats_np = stats_k.cpu().numpy()
+            waited_from = waited
+            stats_np = read(stats_k)
+            done = (meta, waited_from)
             emitted = int(stats_np[3])
             if emitted:
                 fetch_q.append((dense_k, cnt_k, emitted))
@@ -1062,7 +1112,7 @@ class ReorderEngine:
             if (queue_pos > 0 and n_claimed < self.N
                     and self.N - n_claimed < 0.5 * n_real):
                 claimed_np = np.unpackbits(
-                    state["claimed"][: self.Np // 32].cpu().numpy()
+                    read(state["claimed"][: self.Np // 32])
                     .view(np.uint8), bitorder="little")[: self.N]
                 remaining = queue[~claimed_np[queue].astype(bool)]
                 queue = remaining
@@ -1076,20 +1126,26 @@ class ReorderEngine:
                 n_real_dev.fill_(n_real)
                 state["queue_pos"].zero_()
                 compactions += 1
+        flush_span(*done)
         # drain the speculative in-flight flush and the pending harvests
-        dense_k, cnt_k, stats_k = inflight
-        emitted_tail = int(stats_k[3].item())
+        (dense_k, cnt_k, stats_k), meta = inflight
+        waited_from = waited
+        emitted_tail = int(read(stats_k)[3])
         if emitted_tail:
             fetch_q.append((dense_k, cnt_k, emitted_tail))
         for f in fetch_q:
             chunks.append(harvest(*f))
-        dt = time.time() - t_start
+        flush_span(meta, waited_from)
+        dt = (time.time_ns() - t_start) / 1e9
         out = _emissions_from_chunks(chunks)
         if not hit:     # a run that raised leaves no program behind
             graphs.cache_program(dev, 0, self._program_key, runner)
         LAST_RUN_STATS.update(
             rounds=rounds, flush_wall_s=round(dt, 3),
             ms_per_round=round(1000 * dt / max(rounds, 1), 2),
+            flush_device_s=(round(sum(device_ms) / 1000, 6)
+                            if device_ms else None),
+            flush_wait_s=round(waited / 1e9, 6),
             emitted=int(len(out)), walkers=self.B,
             rounds_run=runner.flushes * flush_rounds,
             queue_compactions=compactions, dict_compactions=dict_compactions,
