@@ -105,6 +105,9 @@ def load() -> ctypes.CDLL:
         lib.stpu_pack_2bit.argtypes = [c_u8p, ctypes.c_int64, ctypes.c_int64,
                                        ctypes.POINTER(ctypes.c_uint32),
                                        ctypes.c_int]
+        lib.stpu_pe_id_check.restype = ctypes.c_int64
+        lib.stpu_pe_id_check.argtypes = [c_u8p, c_i64p, ctypes.c_int64,
+                                         ctypes.c_int]
         lib.stpu_fastq_format.restype = ctypes.c_int64
         lib.stpu_fastq_format.argtypes = [c_u8p, c_i32p, c_u8p, c_u8p,
                                           c_u32p, ctypes.c_int64,

@@ -328,6 +328,37 @@ void stpu_unpack_2bit(const uint32_t* packed, int64_t n, int64_t W, int64_t L,
   }
 }
 
+// PE id-pattern check over the parsed id blob (reference: the per-pair
+// check_id_pattern calls of src/preprocess.cpp:113-140, rules of
+// io/ids.py). Pair i is (id i, id per_file + i), id k the bytes
+// [idoffs[k], idoffs[k + 1]) of idbuf. Returns the first pair that fails
+// `code` (1, 2 or 3), per_file if none does, -1 for another code.
+int64_t stpu_pe_id_check(const uint8_t* idbuf, const int64_t* idoffs,
+                         int64_t per_file, int code) {
+  if (code < 1 || code > 3) return -1;
+  for (int64_t i = 0; i < per_file; ++i) {
+    const uint8_t* a = idbuf + idoffs[i];
+    const uint8_t* b = idbuf + idoffs[per_file + i];
+    const int64_t len = idoffs[i + 1] - idoffs[i];
+    if (len != idoffs[per_file + i + 1] - idoffs[per_file + i]) return i;
+    bool ok;
+    if (code == 1) {
+      ok = len > 0 && a[len - 1] == '1' && b[len - 1] == '2' &&
+           memcmp(a, b, (size_t)(len - 1)) == 0;
+    } else if (code == 2) {
+      ok = memcmp(a, b, (size_t)len) == 0;
+    } else {
+      const uint8_t* sp = (const uint8_t*)memchr(a, ' ', (size_t)len);
+      const int64_t s = sp ? sp - a : len;
+      ok = s + 1 < len && memcmp(a, b, (size_t)(s + 1)) == 0 &&
+           a[s + 1] == '1' && b[s + 1] == '2' &&
+           memcmp(a + s + 2, b + s + 2, (size_t)(len - s - 2)) == 0;
+    }
+    if (!ok) return i;
+  }
+  return per_file;
+}
+
 // Format FASTQ/FASTA text from rows: chars (n, L) uint8 (already ASCII),
 // lens, quals (n, L) or null, ids concatenated + idlens. Returns bytes
 // written (caller sizes dst via stpu_fastq_format_bound).

@@ -331,6 +331,27 @@ def unpack_2bit(packed: np.ndarray, L: int,
     return out
 
 
+def pe_id_first_mismatch(idbuf: np.ndarray, idoffs: np.ndarray,
+                         per_file: int, code: int) -> int:
+    """Index of the first pair (id i, id per_file + i) that fails
+    ids.check_id_pattern under ``code``, or ``per_file`` when every pair
+    matches: one native pass over the id blob (id k is
+    ``idbuf[idoffs[k]:idoffs[k + 1]]``), the interpreter lock released."""
+    if code not in (1, 2, 3):
+        raise ValueError(f"invalid paired id code {code}")
+    offs = idoffs[:2 * per_file + 1]
+    if (idbuf.dtype != np.uint8 or offs.dtype != np.int64
+            or not idbuf.flags.c_contiguous or not offs.flags.c_contiguous):
+        raise ValueError("idbuf must be contiguous uint8, idoffs int64")
+    if (per_file < 0 or len(offs) != 2 * per_file + 1 or offs[0] < 0
+            or offs[-1] > len(idbuf) or np.any(offs[1:] < offs[:-1])):
+        raise ValueError("idoffs must be 2 * per_file + 1 nondecreasing "
+                         "offsets into idbuf")
+    return int(native.load().stpu_pe_id_check(
+        _u8p(idbuf), offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        per_file, code))
+
+
 def format_records(chars: np.ndarray, lens: np.ndarray,
                    quals: np.ndarray | None, idbuf: np.ndarray,
                    idlens: np.ndarray) -> bytes:

@@ -36,7 +36,7 @@ from ..encode import stitch as stch
 from ..encode import streams as st
 from ..io import fastq, fastq_native, packing
 from ..io.container import ArchiveReader, ArchiveWriter
-from ..io.ids import check_id_pattern, find_id_pattern, modify_id
+from ..io.ids import find_id_pattern, modify_id
 from ..ops import graphs
 from ..reorder import dictionary as dct
 from ..reorder import engine as eng
@@ -324,16 +324,19 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     mark("load+parse")
 
     # --- PE id pattern detection (reference src/preprocess.cpp:113-140)
+    # the first pair names the pattern; one native pass checks every pair
     pattern_code = 0
     pattern_ok = False
+    pairs_checked = 0
     if paired and cp.preserve_id and per_file:
         def _id(i):
             return idbuf[idoffs[i]:idoffs[i + 1]].tobytes()
         pattern_code = find_id_pattern(_id(0), _id(per_file))
         if pattern_code:
-            pattern_ok = all(
-                check_id_pattern(_id(i), _id(per_file + i), pattern_code)
-                for i in range(per_file))
+            first = fastq_native.pe_id_first_mismatch(
+                idbuf, idoffs, per_file, pattern_code)
+            pattern_ok = first == per_file
+            pairs_checked = per_file if pattern_ok else first + 1
     cp.paired_id_match = bool(pattern_ok and pattern_code)
     cp.paired_id_code = pattern_code if cp.paired_id_match else 0
 
@@ -419,7 +422,8 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     def _progress(_claimed, _total):
         _submit_deferred()
 
-    mark("quantize+idcheck", what="pe_id_check")
+    mark("quantize+idcheck", what="pe_id_check",
+         pairs_checked=pairs_checked, code=pattern_code)
     has_n = overlay.has_n_mask(n)
     clean_rids = np.nonzero(~has_n)[0].astype(np.int32)
 

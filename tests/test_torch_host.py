@@ -221,6 +221,55 @@ def test_id_patterns_equal():
             assert jids.modify_id(a, code) == tids.modify_id(a, code) == b
 
 
+def _pe_ids(code, n):
+    """n pairs of ids that match ``code``, of mixed lengths."""
+    pad = [b"x" * (i % 23) for i in range(n)]
+    if code == 1:
+        return ([b"@r.%d%s/1" % (i, pad[i]) for i in range(n)],
+                [b"@r.%d%s/2" % (i, pad[i]) for i in range(n)])
+    if code == 2:
+        ids = [b"@r.%d %s" % (i, pad[i]) for i in range(n)]
+        return ids, list(ids)
+    return ([b"@r.%d 1:N:%s" % (i, pad[i]) for i in range(n)],
+            [b"@r.%d 2:N:%s" % (i, pad[i]) for i in range(n)])
+
+
+@pytest.mark.parametrize("code,n,swap", [
+    (1, 64, {}), (2, 64, {}), (3, 64, {}),
+    (1, 64, {1: (b"@r.1/1", b"@r.2/2")}),
+    (3, 64, {32: (b"@a 1:N", b"@b 2:N")}),
+    (2, 64, {63: (b"@x", b"@y")}),
+    (2, 64, {10: (b"@same", b"@same.")}),
+    (1, 64, {10: (b"@r.10/1", b"@r.10//2")}),
+    (3, 64, {40: (b"@nospace1", b"@nospace2")}),
+    (3, 64, {40: (b"@r.40 ", b"@r.40 ")}),
+    (3, 64, {50: (b"@r.50 1:N:A", b"@r.50 2:N:B")}),
+    (1, 64, {20: (b"", b"")}),
+    (2, 64, {20: (b"", b"")}),
+    (1, 1, {}),
+    (3, 1, {0: (b"@a 1", b"@a 3")}),
+    (1, 300, {150: (b"@r.150" + b"y" * 200 + b"/1",
+                    b"@r.150" + b"y" * 200 + b"/2"),
+              299: (b"@r/1", b"@r/1")}),
+], ids=["code1", "code2", "code3", "pair1", "middle", "last",
+        "length_only", "length_only_code1", "code3_no_space",
+        "code3_space_last", "code3_tail", "empty_code1", "empty_code2",
+        "per_file_1", "per_file_1_fails", "mixed_lengths"])
+def test_pe_id_first_mismatch_equals_per_pair_check(code, n, swap):
+    ids1, ids2 = _pe_ids(code, n)
+    for i, (a, b) in swap.items():
+        ids1[i], ids2[i] = a, b
+    want = next((i for i in range(n)
+                 if not jids.check_id_pattern(ids1[i], ids2[i], code)), n)
+    allids = ids1 + ids2
+    idbuf = np.frombuffer(b"".join(allids), np.uint8)
+    idoffs = np.concatenate(
+        [[0], np.cumsum([len(x) for x in allids])]).astype(np.int64)
+    assert tfqn.pe_id_first_mismatch(idbuf, idoffs, n, code) == want
+    with pytest.raises(ValueError):
+        tfqn.pe_id_first_mismatch(idbuf, idoffs, n, 4)
+
+
 @pytest.mark.parametrize("kind", ["fastq", "fastq_n_varlen", "fasta", "gz"])
 def test_fastq_native_scan_and_parse_equal(tmp_path, kind):
     fq = str(tmp_path / "in.fastq")

@@ -77,6 +77,10 @@ def test_knob_flushes_equal_jax(fq, capsys, variant, kw):
     claimed reads equal the JAX flush program's on the same packed
     reads; the engine run's numbers are there (no capture on the CPU)."""
     from spring_tpu_torch.io import fastq_native
+    from spring_tpu_torch.ops import graphs
+    # a program of the same key left by another test file in this worker
+    # process would turn the engine run's cache miss into a hit
+    graphs.clear_program_cache()
     rc = knob.main(["4096", variant, "--device", "cpu", "--fastq", fq,
                     "--threads", "2"])
     head, rec = _lines(capsys.readouterr().out)

@@ -1,11 +1,14 @@
 """The port's spans (spring_tpu_torch/utils/spans.py): the recorder's
 bound, parents and threads; a PE compress on the CPU whose stage spans
 tile it and sum to LAST_STAGE_SECONDS, with one codec span a member and
-one flush span a flush; the spans' clock against torch.profiler's, on
-the CPU and (``cuda`` in the name, skipped without a card) on the card.
+one flush span a flush; the PE id check's span and pattern flag, its
+archives read back (a second compress, the last pair off the pattern);
+the spans' clock against torch.profiler's, on the CPU and (``cuda`` in
+the name, skipped without a card) on the card.
 No JAX: ``--noconftest -k cuda`` runs the card's case on the GPU
 machine."""
 import collections
+import filecmp
 import re
 import sys
 import threading
@@ -116,12 +119,15 @@ def pe_compress(tmp_path_factory):
     d = tmp_path_factory.mktemp("trace")
     fq = [str(d / "a.fq"), str(d / "b.fq")]
     synth.make_pe(*fq, 600, genome_size=6000, seed=3)
-    arc = str(d / "a.stpu")
+    return _compress(fq, str(d / "a.stpu"))
+
+
+def _compress(fq, arc):
     api.clear_program_cache()       # a miss, and no program left behind
     try:
-        api.compress(fq, arc, api.CompressOptions(num_threads=2,
-                                                  verbose=False),
-                     device="cpu")
+        cp = api.compress(fq, arc, api.CompressOptions(num_threads=2,
+                                                       verbose=False),
+                          device="cpu")
     finally:
         api.clear_program_cache()
     last = spans.context()[0]
@@ -129,7 +135,24 @@ def pe_compress(tmp_path_factory):
         members = list(r.names())
     return dict(spans=[s for s in spans.spans() if s.compress == last],
                 stages=dict(short_mode.LAST_STAGE_SECONDS),
-                stats=dict(engine.LAST_RUN_STATS), members=members)
+                stats=dict(engine.LAST_RUN_STATS), members=members,
+                files=fq, archive=arc, params=cp)
+
+
+@pytest.fixture(scope="module")
+def pe_last_pair_breaks(tmp_path_factory):
+    """pe_compress's kind of input, 300 pairs, the last file-2 id off the
+    pattern of the first pair."""
+    d = tmp_path_factory.mktemp("idbreak")
+    fq = [str(d / "a.fq"), str(d / "b.fq")]
+    synth.make_pe(*fq, 300, genome_size=3000, seed=4)
+    with open(fq[1], "rb") as f:
+        lines = f.read().split(b"\n")
+    assert lines[-5] == b"@SYN.300/2"
+    lines[-5] = b"@SYN.300/3"
+    with open(fq[1], "wb") as f:
+        f.write(b"\n".join(lines))
+    return _compress(fq, str(d / "a.stpu"))
 
 
 def _key(s) -> str:
@@ -153,8 +176,29 @@ def test_stage_spans_tile_the_compress_and_sum_to_stage_seconds(
     for k, v in want.items():
         assert abs(sums[k] - v) <= 0.0005 + 1e-9, k
     idcheck = next(s for s in stages if s.name == "quantize+idcheck")
-    assert idcheck.attrs == {"what": "pe_id_check"}
+    assert idcheck.attrs == {"what": "pe_id_check", "pairs_checked": 600,
+                             "code": 1}
     assert any(re.fullmatch(r"stitch\[\d+\]", k) for k in want)
+
+
+@pytest.mark.parametrize("run,match", [("pe_compress", True),
+                                       ("pe_last_pair_breaks", False)])
+def test_pe_id_check_through_compress(run, match, request, tmp_path):
+    """The native id check decides the archive's pattern flag as the
+    per-pair check did, every pair checked; both archives read back
+    byte for byte."""
+    got = request.getfixturevalue(run)
+    cp = got["params"]
+    assert cp.paired_id_match is match
+    assert cp.paired_id_code == (1 if match else 0)
+    idcheck = next(s for s in got["spans"] if s.name == "quantize+idcheck")
+    n = 600 if match else 300
+    assert idcheck.attrs == {"what": "pe_id_check", "pairs_checked": n,
+                             "code": 1}
+    out = [str(tmp_path / "1.fq"), str(tmp_path / "2.fq")]
+    api.decompress(got["archive"], out, num_threads=2, verbose=False)
+    for a, b in zip(got["files"], out):
+        assert filecmp.cmp(a, b, shallow=False)
 
 
 def test_one_codec_span_a_member_under_the_stage_that_submitted_it(
