@@ -426,6 +426,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
          pairs_checked=pairs_checked, code=pattern_code)
     has_n = overlay.has_n_mask(n)
     clean_rids = np.nonzero(~has_n)[0].astype(np.int32)
+    n_with_n = n - len(clean_rids)      # held out of the engine
 
     # per-read metadata in int32 (offsets are guarded < 2^31 below)
     flag = np.zeros(n, np.uint8)
@@ -540,6 +541,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
     # second chance: align N-reads and singleton-contig reads against the
     # consensus (reference src/encoder.h:242-351)
     leftover = np.nonzero(flag == 0)[0]
+    sc_in = sc_placed = 0
     if len(leftover) and len(seq_codes) >= 16 and maxlen >= 32:
         lens_l = lengths[leftover]
         nm_f, nm_r = overlay.nmask_planes(leftover, lens_l, ml)
@@ -547,6 +549,7 @@ def compress_short(files: list[str], writer: ArchiveWriter,
             seq_codes, np.ascontiguousarray(packed_all[leftover]),
             nm_f, nm_r, lens_l, device=device)
         g2 = leftover[placed]
+        sc_in, sc_placed = len(leftover), len(g2)
         if len(g2):
             order2 = np.argsort(g2pos[placed], kind="stable")
             g2 = g2[order2]
@@ -567,13 +570,17 @@ def compress_short(files: list[str], writer: ArchiveWriter,
             noisepos = np.concatenate([noisepos, npos2])
             noisechar = np.concatenate([noisechar, nchar2])
             lay_rank[g2] = int((lay_rank >= 0).sum()) + np.arange(len(g2))
-        mark("second_chance")
+        mark("second_chance", n_reads=n_with_n, reads_in=sc_in,
+             placed=sc_placed)
 
     device_done[0] = True       # tail codec tasks may widen to 2 threads
 
     unmatched = int((flag == 0).sum())
     eng.LAST_RUN_STATS["unmatched_frac"] = round(unmatched / max(n, 1), 5)
     eng.LAST_RUN_STATS["unmatched"] = unmatched
+    eng.LAST_RUN_STATS["n_reads"] = n_with_n
+    eng.LAST_RUN_STATS["second_chance_in"] = sc_in
+    eng.LAST_RUN_STATS["second_chance_placed"] = sc_placed
     eng.LAST_RUN_STATS["consensus_segments"] = dict(sc.SEGMENTS)
 
     _submit_seq()       # edge paths reach here without the early submission

@@ -134,6 +134,8 @@ SHAPES = {
     # 64 walkers of 2 slots would fill a block, but their frames (4 KiB a
     # walker) would not fit its shared memory: the block takes fewer
     "w32_two_slots": (25, 70, 2, 32, 16, 256),
+    # 151-base reads: 11 words a row, the kernel's generic (scalar) path
+    "round_w10": (26, 24, 16, 10, 16, 512),
 }
 
 
