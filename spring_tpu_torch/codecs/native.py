@@ -118,6 +118,14 @@ def load() -> ctypes.CDLL:
         lib.stpu_qv_compress.argtypes = [c_u8p, ctypes.c_int64, c_i32p,
                                          c_u8p, ctypes.c_int64, ctypes.c_int,
                                          ctypes.c_int]
+        lib.stpu_qv_max_shards.restype = ctypes.c_int
+        lib.stpu_qv_max_shards.argtypes = []
+        lib.stpu_qv_plan.restype = ctypes.c_int
+        lib.stpu_qv_plan.argtypes = [c_i32p, ctypes.c_int64, c_i64p]
+        lib.stpu_qv_shard.restype = ctypes.c_int64
+        lib.stpu_qv_shard.argtypes = [c_u8p, ctypes.c_int64, ctypes.c_int64,
+                                      c_i64p, ctypes.c_int64, c_i32p, c_u8p,
+                                      ctypes.c_int, c_u8p, ctypes.c_int64]
         lib.stpu_qv_dims.restype = ctypes.c_int
         lib.stpu_qv_dims.argtypes = [c_u8p, ctypes.c_int64, c_i64p, c_i64p,
                                      c_i64p]

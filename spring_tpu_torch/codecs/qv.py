@@ -1,4 +1,5 @@
-"""Copied from spring_tpu/codecs/qv.py; only the imports differ.
+"""Copied from spring_tpu/codecs/qv.py; the imports differ, and
+shard_plan, compress_shard and frame_shards are the port's own.
 
 Python API over the native quality codec (csrc/qvcodec.cpp).
 
@@ -10,10 +11,14 @@ range coding — beating the block-sorting approach on both ratio and CPU.
 Two front-ends over one ragged-row wire format:
   compress_rows / decompress_rows — zero-padded (n, L) matrix + lengths
   compress_str_array / decompress_str_array — list of byte strings
+A block can also be coded one shard at a time: shard_plan gives its
+shards' rows, compress_shard codes one shard from a spool of rows and
+frame_shards joins the payloads into compress_rows' bytes.
 """
 from __future__ import annotations
 
 import ctypes
+import struct
 
 import numpy as np
 
@@ -26,6 +31,10 @@ def _u8p(a: np.ndarray):
 
 def _i32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 def _compress_blob(blob: np.ndarray, lens: np.ndarray,
@@ -70,6 +79,50 @@ def compress_rows(mat: np.ndarray, lens: np.ndarray,
     valid = np.arange(L)[None, :] < lens32[:, None]
     return _compress_blob(np.ascontiguousarray(mat[valid]), lens32,
                           num_threads, fine_pos)
+
+
+def shard_plan(lens: np.ndarray) -> np.ndarray:
+    """Row bounds of the S shards compress_rows splits rows of ``lens``
+    into (S + 1 entries: shard s holds rows [r[s], r[s + 1]))."""
+    lib = native.load()
+    lens32 = np.ascontiguousarray(lens, dtype=np.int32)
+    r0 = np.empty(lib.stpu_qv_max_shards() + 1, np.int64)
+    S = lib.stpu_qv_plan(_i32p(lens32), len(lens32), _i64p(r0))
+    return r0[:S + 1]
+
+
+def compress_shard(base: int, spool_rows: int, ml: int, rows: np.ndarray,
+                   lens: np.ndarray, table: np.ndarray | None = None,
+                   fine_pos: bool = False) -> bytes:
+    """One shard's payload: rows ``rows`` of the ``spool_rows`` x ``ml``
+    bytes at address ``base`` (``lens`` chars each, mapped through the
+    256-entry ``table`` where given), coded as compress_rows codes that
+    shard of the mapped rows. The native call releases the GIL."""
+    lib = native.load()
+    rows64 = np.ascontiguousarray(rows, dtype=np.int64)
+    lens32 = np.ascontiguousarray(lens, dtype=np.int32)
+    if len(rows64) != len(lens32):
+        raise ValueError("rows and lens differ in length")
+    lut = (None if table is None
+           else np.ascontiguousarray(table, dtype=np.uint8))
+    if lut is not None and lut.shape != (256,):
+        raise ValueError("table must have 256 entries")
+    n = len(lens32)
+    cap = int(lib.stpu_qv_bound(int(lens32.sum(dtype=np.int64)), n))
+    dst = np.empty(cap, np.uint8)
+    got = lib.stpu_qv_shard(
+        ctypes.cast(base, ctypes.POINTER(ctypes.c_uint8)), spool_rows, ml,
+        _i64p(rows64), n, _i32p(lens32),
+        None if lut is None else _u8p(lut), int(fine_pos), _u8p(dst), cap)
+    if got < 0:
+        raise RuntimeError(f"qv shard failed ({got})")
+    return dst[:got].tobytes()
+
+
+def frame_shards(parts: list) -> bytes:
+    """compress_rows' bytes from its shards' payloads in plan order."""
+    return struct.pack("<I", len(parts)) + b"".join(
+        struct.pack("<Q", len(p)) + p for p in parts)
 
 
 def decompress_rows(data: bytes, max_len: int | None = None,

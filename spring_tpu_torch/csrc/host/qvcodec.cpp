@@ -369,9 +369,11 @@ int shard_walk(const uint8_t* src, int64_t src_len, ShardRef* refs) {
 
 }  // namespace
 
-int64_t qv_compress(const uint8_t* blob, int64_t n, const int32_t* lens,
-                    std::vector<uint8_t>& out, int num_threads,
-                    bool fine_pos) {
+// The shard plan of a block: S char-balanced contiguous row ranges,
+// shard s holding rows [r0[s], r0[s + 1]) (r0 has room for kMaxShards + 1).
+// S depends on the rows alone, never on the thread count, so a block codes
+// to the same bytes whether its shards run in one call or one call each.
+static int qv_plan(const int32_t* lens, int64_t n, int64_t* r0) {
   int64_t total = 0;
   for (int64_t r = 0; r < n; ++r) total += lens[r];
   int S = (int)std::min<int64_t>(
@@ -379,19 +381,27 @@ int64_t qv_compress(const uint8_t* blob, int64_t n, const int32_t* lens,
                         std::max<int64_t>(n, 1)),
       kMaxShards);
   if (S < 1) S = 1;
-  // char-balanced contiguous row partition
-  std::vector<int64_t> r0(S + 1, 0), b0(S + 1, 0);
-  {
-    int64_t target = (total + S - 1) / S;
-    int64_t acc = 0, row = 0;
-    for (int s = 1; s < S; ++s) {
-      int64_t want = target * s;
-      while (row < n && acc < want) acc += lens[row++];
-      r0[s] = row;
-      b0[s] = acc;
-    }
-    r0[S] = n;
-    b0[S] = total;
+  int64_t target = (total + S - 1) / S;
+  int64_t acc = 0, row = 0;
+  r0[0] = 0;
+  for (int s = 1; s < S; ++s) {
+    int64_t want = target * s;
+    while (row < n && acc < want) acc += lens[row++];
+    r0[s] = row;
+  }
+  r0[S] = n;
+  return S;
+}
+
+int64_t qv_compress(const uint8_t* blob, int64_t n, const int32_t* lens,
+                    std::vector<uint8_t>& out, int num_threads,
+                    bool fine_pos) {
+  int64_t r0[kMaxShards + 1];
+  int S = qv_plan(lens, n, r0);
+  std::vector<int64_t> b0(S + 1, 0);
+  for (int s = 0; s < S; ++s) {
+    b0[s + 1] = b0[s];
+    for (int64_t r = r0[s]; r < r0[s + 1]; ++r) b0[s + 1] += lens[r];
   }
   std::vector<std::vector<uint8_t>> parts((size_t)S);
   bool fail = false;
@@ -472,6 +482,49 @@ int64_t stpu_qv_compress(const uint8_t* blob, int64_t n, const int32_t* lens,
   std::vector<uint8_t> out;
   int64_t sz = stpu::qv_compress(blob, n, lens, out, num_threads,
                                  fine_pos != 0);
+  if (sz < 0) return sz;
+  if (sz > cap) return -2;
+  std::memcpy(dst, out.data(), (size_t)sz);
+  return sz;
+}
+
+int stpu_qv_max_shards() { return stpu::kMaxShards; }
+
+// fills r0[0..S] (kMaxShards + 1 entries of room) and returns S
+int stpu_qv_plan(const int32_t* lens, int64_t n, int64_t* r0) {
+  return stpu::qv_plan(lens, n, r0);
+}
+
+// One shard of a block straight from a spool of rows: rows[i] (global row
+// indices into spool, spool_rows rows of ml bytes) for lens[i] chars each,
+// mapped through lut (256 entries; null: as they are), coded as
+// qv_compress codes that shard. Writes the shard's payload (without its
+// u64 length) to dst; returns its size, -5 for a row index out of the
+// spool or a length longer than a spool row, -2 where cap is too small.
+int64_t stpu_qv_shard(const uint8_t* spool, int64_t spool_rows, int64_t ml,
+                      const int64_t* rows, int64_t n, const int32_t* lens,
+                      const uint8_t* lut, int fine_pos, uint8_t* dst,
+                      int64_t cap) {
+  int64_t total = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (rows[i] < 0 || rows[i] >= spool_rows || lens[i] < 0 || lens[i] > ml)
+      return -5;
+    total += lens[i];
+  }
+  std::vector<uint8_t> blob((size_t)std::max<int64_t>(total, 1));
+  uint8_t* w = blob.data();
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t* src = spool + rows[i] * ml;
+    if (lut) {
+      for (int32_t j = 0; j < lens[i]; ++j) w[j] = lut[src[j]];
+    } else {
+      std::memcpy(w, src, (size_t)lens[i]);
+    }
+    w += lens[i];
+  }
+  std::vector<uint8_t> out;
+  int64_t sz =
+      stpu::qv_compress_one(blob.data(), n, lens, out, fine_pos != 0);
   if (sz < 0) return sz;
   if (sz > cap) return -2;
   std::memcpy(dst, out.data(), (size_t)sz);
