@@ -151,10 +151,10 @@ def compress(files: list[str], output: str,
                f"{os.path.getsize(output)} bytes in {time.time()-t0:.2f}s")
     if opts.verbose:
         # per-stream compressed size report (reference src/spring.cpp:228-248)
+        from .pipeline import blocks
         with ArchiveReader(output) as r:
             sizes = r.size_by_prefix()
-        groups = {"reads": ("seq", "pos", "rc", "flag", "rlen", "nn", "npos",
-                            "nchar", "literal", "read1", "read2"),
+        groups = {"reads": blocks.READ_STREAMS + ("read1", "read2"),
                   "quality": ("quality", "quality1", "quality2"),
                   "id": ("id", "id1", "id2")}
         for gname, members in groups.items():

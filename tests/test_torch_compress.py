@@ -93,13 +93,11 @@ def test_port_runs_without_jax(tmp_path):
 
 
 def test_port_sources_import_nothing_of_jax_or_spring_tpu():
-    """No file of the port (the package, chip_smoke.py, bench_torch.py,
-    the profile tool) has an import of jax or of the spring_tpu package,
-    a path built into spring_tpu/, or a SPRING_TPU_* environment
-    variable."""
+    """No file of the port (the package, chip_smoke.py, the profile tool)
+    has an import of jax or of the spring_tpu package, a path built into
+    spring_tpu/, or a SPRING_TPU_* environment variable."""
     imp = re.compile(r"^\s*(from|import)\s+(jax|spring_tpu)(\.|\s|$)")
     paths = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "bench_torch.py"),
              os.path.join(REPO, "tools", "profile_torch_engine.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO, "spring_tpu_torch")):
         paths += [os.path.join(root, f) for f in names

@@ -37,7 +37,7 @@ limit (nvidia-smi; null on the CPU) and the input; the last a summary:
 each config's best_s, archive bytes, rounds and ms a replayed round, the
 first and last configs' best_s where their engines are equal, and
 ``default_check``: with --check-default a fresh process compresses FASTQ
-with bench_torch.py's options (nothing set but the threads) and every
+with the default options (nothing set but the threads) and every
 config with no override must give its archive byte for byte. Lines are
 also appended to --out FILE; progress goes to stderr. The exit code is
 1 when a round trip differs, a pass after the first misses the program
@@ -68,7 +68,8 @@ DEFAULT_CONFIGS = ("base=", "fn4=far_near:4", "sc8=shift_chunk:8",
                    "sl32=accept_slots:32", "w16k=num_walkers:16384",
                    "cap6=cap_per_round:6", "fr64=flush_rounds:64", "base=")
 
-# bench_torch.py's compress of FASTQ into ARCHIVE, in a fresh process
+# a compress of FASTQ into ARCHIVE with the default options, in a fresh
+# process
 DEFAULT_CHILD = r"""
 import os, sys
 sys.modules["jax"] = None
@@ -169,7 +170,7 @@ def run_config(torch, fq, arc, name, engine, passes, device, threads):
 
 
 def default_check(fq, work, device, threads, records):
-    """A fresh process's compress with bench_torch.py's options against
+    """A fresh process's compress with the default options against
     every config with no override: (check record, failures)."""
     plain = [r for r in records if not r["engine"]]
     if not plain:
